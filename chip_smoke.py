@@ -1,0 +1,554 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one GPU and check it.
+
+    python3 chip_smoke.py            # full width: ER n=100k, degree 10, KHop(2)
+
+Phases, one JSON object per line:
+
+1. ``env``     — the card (``nvidia-smi`` name and power limit), torch, CUDA.
+2. ``build``   — compiles every kernel of ``src/repro_torch/csrc`` with nvcc
+                 for sm_90a (one nvcc per source, all started together).
+3. ``index``   — the graph, the host EMC DBIndex build and the device plan,
+                 built by constructing the ``Session``.
+4. ``kernel:segment_sum`` / ``kernel:bitset_expand`` — each kernel against
+   its plain PyTorch version on the card at the main path's shapes
+   (bitwise on integer values; on normal float32 values within 1e-5 of
+   each segment's sum of |terms|; bitwise across two launches), and timed
+   with CUDA events:
+   kernel, plain version, one PyTorch library call, and the bound.
+5. ``session`` — the port's main path: ``Session.run``, ``run_many`` (B=8)
+   and a stream of ``UpdateBatch``es with phase 2 deferred, then one batch
+   under the default ``StalenessPolicy`` (which reorganizes: a full EMC
+   rebuild and a fresh plan upload), each result checked bit for bit
+   against the session's own host index and against the set-evaluation
+   oracle; the kernels' launch counts are reset just before and read just
+   after.
+6. ``profile`` — one more ``update()`` and ``run()`` under ``torch.profiler``:
+   device time by kernel and the device's idle share.
+7. ``kernels`` — one line per the repo's reporting contract; then the card
+   line from ``nvidia-smi``; then the ``{"ok": true, ...}`` line.
+
+Any failed check raises and the script exits non-zero; without CUDA it
+exits non-zero before printing any result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+AGGS = ("sum", "count", "avg", "min", "max")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+F32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+# normal float32 values: kernel and plain version add in different orders,
+# and the rounding of any order of a segment's adds is bounded by a multiple
+# of the sum of its terms' magnitudes, so |kernel - plain| <= TOL * sum|x|
+TOL = 1e-5
+
+_LINES = []
+
+
+def emit(obj) -> None:
+    line = json.dumps(obj)
+    _LINES.append(line)
+    print(line, flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def time_ms(fn, dev, reps: int) -> float:
+    """Median milliseconds of ``fn()`` over ``reps`` calls after two
+    warm-up calls: CUDA events around each call on the card."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    pairs = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def nbytes(*ts) -> int:
+    return sum(int(t.numel() * t.element_size()) for t in ts)
+
+
+def bound_ms(bytes_moved: int, ops: int) -> tuple:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------- #
+def kernel_segment_sum(plan, vals, dev, reps, rng):
+    """K1 at the two passes of one ``run()`` for (sum, count, avg, min, max):
+    pass 1 sums the value column over the member rows, pass 2 the stacked
+    (sum, count) partials over the link rows."""
+    import torch
+
+    from repro_torch.kernels.segment_reduce.segment_reduce import (
+        segment_sum_plain,
+        segment_sum_tiled,
+    )
+
+    v = torch.from_numpy(vals.astype("float32")).to(dev)[:, None].contiguous()
+    t_sum = segment_sum_tiled(v, plan.pass1.gather_padded, plan.pass1.seg_tiles,
+                              plan.pass1.m2out, num_out_tiles=plan.pass1.num_out_tiles,
+                              tm=plan.pass1.tm, ts=plan.pass1.ts)[: plan.block_capacity]
+    t_mat = torch.cat([t_sum, plan.block_sizes[:, None]], dim=1).contiguous()
+    passes = {"pass1": (plan.pass1, v), "pass2": (plan.pass2, t_mat)}
+    per_pass, max_err = {}, 0.0
+    for name, (tp, x) in passes.items():
+        args = (tp.gather_padded, tp.seg_tiles, tp.m2out)
+        kw = dict(num_out_tiles=tp.num_out_tiles, tm=tp.tm, ts=tp.ts)
+        k1 = segment_sum_tiled(x, *args, **kw)
+        k2 = segment_sum_tiled(x, *args, **kw)
+        plain = segment_sum_plain(x, tp.gather_padded, tp.seg_tiles,
+                                  num_out_tiles=tp.num_out_tiles, ts=tp.ts)
+        torch.cuda.synchronize(dev)
+        check(torch.equal(k1, plain), f"K1 {name}: integer values not bitwise equal")
+        check(torch.equal(k1, k2), f"K1 {name}: two launches differ")
+        xn = torch.from_numpy(rng.normal(size=tuple(x.shape)).astype("float32")).to(dev)
+        kn = segment_sum_tiled(xn, *args, **kw)
+        pn = segment_sum_plain(xn, tp.gather_padded, tp.seg_tiles,
+                               num_out_tiles=tp.num_out_tiles, ts=tp.ts)
+        mass = segment_sum_plain(xn.abs(), tp.gather_padded, tp.seg_tiles,
+                                 num_out_tiles=tp.num_out_tiles, ts=tp.ts)
+        diff = (kn - pn).abs()
+        err = float(diff.max())
+        check(bool((diff <= TOL * mass).all()),
+              f"K1 {name}: normal values off by {err} (> {TOL} of sum|x|)")
+        max_err = max(max_err, err)
+        # the library yardstick: one index_add over the pre-gathered rows
+        sid = tp.seg_tiles.reshape(-1)
+        ok = sid >= 0
+        rows = torch.where(ok[:, None], x[tp.gather_padded.long()], 0.0)
+        sink = tp.num_out_tiles * tp.ts
+        sid_l = torch.where(ok, sid, sink).long()
+        zeros = torch.zeros((sink + 1, x.shape[1]), dtype=torch.float32, device=dev)
+        check(torch.equal(zeros.index_add(0, sid_l, rows)[:sink], plain),
+              f"K1 {name}: library call disagrees")
+        valid_rows = int(ok.sum())
+        # least bytes: each valid row's gather index and segment id, each
+        # value row the valid rows gather (once), m2out and the output
+        gathered = int(torch.unique(tp.gather_padded.reshape(-1)[ok]).numel())
+        moved = (2 * valid_rows * 4 + gathered * x.shape[1] * x.element_size()
+                 + nbytes(tp.m2out, k1))
+        b, by = bound_ms(moved, valid_rows * x.shape[1])
+        per_pass[name] = {
+            "rows": int(sid.numel()), "valid_rows": valid_rows,
+            "channels": int(x.shape[1]), "segments": int(tp.num_segments),
+            "ms": time_ms(lambda: segment_sum_tiled(x, *args, **kw), dev, reps),
+            "plain_ms": time_ms(lambda: segment_sum_plain(
+                x, tp.gather_padded, tp.seg_tiles, num_out_tiles=tp.num_out_tiles,
+                ts=tp.ts), dev, reps),
+            "library_ms": time_ms(lambda: zeros.index_add(0, sid_l, rows), dev, reps),
+            "bound_ms": b, "bound_by": by,
+        }
+    total = {k: sum(p[k] for p in per_pass.values())
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    total["bound_by"] = ("bytes" if all(p["bound_by"] == "bytes"
+                                        for p in per_pass.values())
+                         else "operations")
+    return per_pass, total, max_err
+
+
+def kernel_bitset_expand(g, dev, reps, rng):
+    """K2: ``khop_reach`` from 4096 seeds, 2 hops, over the whole graph's
+    symmetrized reverse edges (the update BFS's plan at full size)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.bitset_expand.bitset_expand import (
+        bitset_expand_plain,
+        bitset_expand_tiled,
+    )
+    from repro_torch.kernels.bitset_expand.ops import (
+        bitset_expand,
+        build_expand_plan,
+        khop_reach,
+        seed_bitsets,
+    )
+
+    rg = g.reverse_view()
+    src = np.concatenate([rg.src, rg.dst])
+    dst = np.concatenate([rg.dst, rg.src])
+    order = np.argsort(dst, kind="stable")
+    plan = build_expand_plan(src[order], dst[order], g.n, torch_device=dev)
+    seeds = np.sort(rng.choice(g.n, min(4096, g.n), replace=False))
+    r0 = torch.from_numpy(seed_bitsets(g.n, seeds)).to(dev)
+    hop1 = bitset_expand(plan, r0)
+    reach = khop_reach(plan, g.n, seeds, 2)
+    again = khop_reach(plan, g.n, seeds, 2)
+    p1 = bitset_expand_plain(r0, plan.gather_padded, plan.seg_tiles)
+    p2 = bitset_expand_plain(p1, plan.gather_padded, plan.seg_tiles)
+    err = max(int(((a.long() & 0xFFFFFFFF) - (b.long() & 0xFFFFFFFF)).abs().max())
+              for a, b in ((hop1, p1), (reach, p2)))
+    check(err == 0, f"K2 differs from its plain version by {err} in a word")
+    check(torch.equal(reach, again), "K2: two runs differ")
+    # the library yardstick: one sparse product (A + I) @ membership, whose
+    # non-zeros are the next hop's bits
+    n, words = hop1.shape
+    a_rows = torch.from_numpy(np.concatenate([dst[order], np.arange(g.n)])).to(dev)
+    a_cols = torch.from_numpy(np.concatenate([src[order], np.arange(g.n)])).to(dev)
+    a = torch.sparse_coo_tensor(torch.stack([a_rows, a_cols]),
+                                torch.ones(a_rows.numel(), device=dev),
+                                (g.n, g.n)).coalesce().to_sparse_csr()
+    shifts = torch.arange(32, device=dev)
+    x = ((hop1.long()[:, :, None] >> shifts) & 1).reshape(n, words * 32).float()
+    y = torch.sparse.mm(a, x)
+    packed = ((y > 0).long().reshape(n, words, 32) << shifts).sum(dim=2)
+    check(torch.equal(packed, reach.long() & 0xFFFFFFFF),
+          "K2: library call disagrees")
+    args = (plan.gather_padded, plan.seg_tiles, plan.m2out)
+    kw = dict(num_out_tiles=plan.num_out_tiles, tm=plan.tm, ts=plan.ts)
+    valid = int((plan.seg_tiles >= 0).sum())
+    # least bytes: every row of reach (each is its own row's base) and of
+    # the output, each edge's source index, one run boundary per row, m2out
+    moved = nbytes(hop1, reach, plan.m2out) + valid * 4 + (n + 1) * 4
+    b, by = bound_ms(moved, valid * words)
+    out = {
+        "max_abs_err": err,
+        "edges": valid, "words": words, "rows": n,
+        "ms": time_ms(lambda: bitset_expand_tiled(hop1, *args, **kw), dev, reps),
+        "plain_ms": time_ms(lambda: bitset_expand_plain(
+            hop1, plan.gather_padded, plan.seg_tiles), dev, reps),
+        "library_ms": time_ms(lambda: torch.sparse.mm(a, x), dev, reps),
+        "bound_ms": b, "bound_by": by,
+        "reached_2hop": int((reach != 0).any(dim=1).sum()),
+    }
+    return out
+
+
+# ---------------------------------------------------------------------- #
+def host_expect(index, vals):
+    """What the device must return, from the host index (float64 NumPy):
+    sum/count/min/max are integers below 2^24, exact in float32; the device
+    divides ``avg`` in float32, so its oracle is the float32 quotient."""
+    import numpy as np
+
+    out = {a: index.query(vals, a) for a in ("sum", "count", "min", "max")}
+    out["avg"] = out["sum"].astype(np.float32) / np.maximum(
+        out["count"].astype(np.float32), np.float32(1e-30))
+    return out
+
+
+def check_results(res, expect, what):
+    import numpy as np
+
+    for a, r in zip(AGGS, res):
+        e = expect[a]
+        if a == "avg":
+            check(r.dtype == np.float32 and np.array_equal(r, e), f"{what}: avg")
+        else:
+            check(np.array_equal(r.astype(np.float64), e), f"{what}: {a}")
+
+
+def set_eval_expect(g, vals, verts):
+    import numpy as np
+
+    from repro_torch.core.windows import khop_window_single
+
+    cols = {a: [] for a in AGGS}
+    for v in verts:
+        w = vals[khop_window_single(g, 2, int(v))]
+        cols["sum"].append(w.sum())
+        cols["count"].append(w.size)
+        cols["min"].append(w.min())
+        cols["max"].append(w.max())
+    out = {a: np.asarray(c, np.float64) for a, c in cols.items() if c}
+    out["avg"] = out["sum"].astype(np.float32) / np.maximum(
+        out["count"].astype(np.float32), np.float32(1e-30))
+    return out
+
+
+def build_session(g, args, dev):
+    import numpy as np
+
+    from repro_torch.core.aggregates import promote_channel_dtype
+    from repro_torch.core.api import QuerySpec, Session
+    from repro_torch.core.streaming import StalenessPolicy
+    from repro_torch.core.windows import KHopWindow
+
+    vals = g.attrs["val"]
+    check(promote_channel_dtype(vals) == np.float64,
+          "host channels of a float64 attribute are float64")
+    # phase 2 (a full EMC rebuild) is deferred for the stream: at this
+    # batch size the default policy would rebuild on every batch (the
+    # phase-1 merges' link growth trips max_link_ratio at once); one batch
+    # after the stream runs under the default policy (drive_main_path)
+    policy = StalenessPolicy(max_link_ratio=float("inf"),
+                             max_block_ratio=float("inf"), max_garbage_ratio=1.0)
+    t0 = time.perf_counter()
+    sess = Session(g, [QuerySpec(KHopWindow(2), a) for a in AGGS],
+                   use_device_bfs=True, policy=policy, torch_device=dev)
+    t_session = time.perf_counter() - t0
+    (state,) = sess._states.values()
+    return sess, state, policy, t_session
+
+
+def make_batch(g, args, rng):
+    """``args.inserts`` random edges plus ``args.deletes`` existing ones."""
+    import numpy as np
+
+    from repro_torch.core.updates import UpdateBatch
+
+    ins_s = rng.integers(0, g.n, args.inserts)
+    ins_d = rng.integers(0, g.n, args.inserts)
+    e = rng.choice(g.n_edges, args.deletes, replace=False)
+    return UpdateBatch(np.concatenate([ins_s, g.src[e]]),
+                       np.concatenate([ins_d, g.dst[e]]),
+                       np.concatenate([np.ones(args.inserts, np.int8),
+                                       -np.ones(args.deletes, np.int8)]))
+
+
+def profile_phase(sess, state, args, rng, dev, unprofiled_ms):
+    """One more ``update()`` and ``run()`` under ``torch.profiler``: the
+    device-side events (kernels and copies; the aten rows that carry their
+    kernels' time again are left out) against the unprofiled median wall
+    time of the same call, which gives the device's idle share.  The
+    profiler's own host overhead is inside ``wall_ms_profiled`` only."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    out = {}
+    for what in ("update", "run"):
+        batch = make_batch(sess.graph, args, rng) if what == "update" else None
+        t = time.perf_counter()
+        with profile(activities=acts) as prof:
+            res = sess.update(batch) if what == "update" else sess.run()
+            torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t) * 1e3
+        if what == "run":
+            check_results(res, host_expect(state.index, sess.graph.attrs["val"]),
+                          "profiled run vs host index")
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        device_ms = sum(e.self_device_time_total for e in events) / 1e3
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+        out[what] = {
+            "wall_ms_profiled": wall_ms,
+            "wall_ms_unprofiled_median": unprofiled_ms[what],
+            "device_ms": device_ms if events else "not measured",
+            "device_idle_share": (max(0.0, 1 - device_ms / unprofiled_ms[what])
+                                  if events else "not measured"),
+            "top_device_events": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
+                                  for e in top],
+        }
+    return out
+
+
+def drive_main_path(sess, state, args, rng):
+    """The main path, counted: run, run_many and the update stream."""
+    import numpy as np
+
+    from repro_torch.core.api import recompile_count
+    from repro_torch.core.streaming import StalenessPolicy
+    from repro_torch.kernels.bitset_expand.bitset_expand import bitset_expand_tiled
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
+
+    default_policy = StalenessPolicy()
+    verts = np.sort(rng.choice(sess.graph.n, args.oracle_vertices, replace=False))
+    vb = rng.integers(0, 100, (8, sess.graph.n)).astype(np.float64)
+    segment_sum_tiled.launches = 0
+    bitset_expand_tiled.launches = 0
+    t = time.perf_counter()
+    res = sess.run()
+    run_ms = [(time.perf_counter() - t) * 1e3]
+    count0 = recompile_count()
+    check_results(res, host_expect(state.index, sess.graph.attrs["val"]), "run v0")
+    t = time.perf_counter()
+    many = sess.run_many(vb)
+    run_many_ms = (time.perf_counter() - t) * 1e3
+    for b in range(vb.shape[0]):
+        for a, m, r in zip(AGGS, many, sess.run(vb[b])):
+            check(np.array_equal(m[b], r), f"run_many row {b} differs from run: {a}")
+    def step(version):
+        """One ``update()`` then one checked ``run()``: (report, update ms)."""
+        batch = make_batch(sess.graph, args, rng)
+        t = time.perf_counter()
+        (rep,) = sess.update(batch).values()
+        ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        res = sess.run()
+        run_ms.append((time.perf_counter() - t) * 1e3)
+        vals = sess.graph.attrs["val"]
+        check_results(res, host_expect(state.index, vals), f"run v{version} vs host index")
+        oracle = set_eval_expect(sess.graph, vals, verts)
+        check_results([r[verts] for r in res], oracle, f"run v{version} vs set evaluation")
+        return rep, ms
+
+    update_ms, affected, reorganized, would_reorg = [], [], 0, 0
+    for i in range(args.batches):
+        rep, ms = step(i + 1)
+        update_ms.append(ms)
+        affected.append(int(rep["affected"]))
+        reorganized += bool(rep["reorganized"])
+        would_reorg += bool(default_policy.should_reorganize(
+            state.index, state._base_links, state._base_blocks,
+            state.batches_since_reorg))
+    # one batch under the default policy: after the stream's link growth it
+    # reorganizes (a full host EMC build and a fresh plan upload to the card)
+    links_after = int(state.index.stats.get("num_links", 0))
+    blocks_after = int(state.index.num_blocks)
+    deferred, state.policy = state.policy, default_policy
+    rep, reorg_ms = step(args.batches + 1)
+    state.policy = deferred
+    check(bool(rep["reorganized"]), "the default-policy batch did not reorganize")
+    launches = {"segment_sum": segment_sum_tiled.launches,
+                "bitset_expand": bitset_expand_tiled.launches}
+    return {
+        "run_ms": statistics.median(run_ms), "run_ms_first": run_ms[0],
+        "run_many_ms": run_many_ms, "run_many_batch": int(vb.shape[0]),
+        "update_ms": statistics.median(update_ms), "update_ms_all": update_ms,
+        "batches": args.batches, "edits_per_batch": args.inserts + args.deletes,
+        "affected_owners": affected, "reorganized": reorganized,
+        "default_policy_would_reorganize": would_reorg,
+        "links_after_stream": links_after, "blocks_after_stream": blocks_after,
+        "default_policy_update_ms": reorg_ms,
+        "default_policy_reorganized": bool(rep["reorganized"]),
+        # the EMC rebuild plus the plan upload
+        "default_policy_rebuild_s": rep["t_plan_s"],
+        "recompile_count_delta": recompile_count() - count0,
+        "plan_shapes_constant": recompile_count() == count0,
+        "plan_bytes_after": state.plan.plan_nbytes(),
+        "links_after": int(state.index.stats.get("num_links", 0)),
+        "blocks_after": int(state.index.num_blocks),
+        "launches": launches,
+        "oracle_vertices": int(verts.size),
+    }
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def run(args, dev) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.graphs.generators import erdos_renyi, with_random_attrs
+    from repro_torch.kernels import build
+
+    rng = np.random.default_rng(args.seed)
+    smi = smi_line()
+    emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0],
+          "device_count": torch.cuda.device_count()})
+
+    t = time.perf_counter()
+    secs = build.build()
+    ptxas = {}
+    for name in secs:
+        log = build.library_path(name).with_suffix(".log")
+        ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
+                       if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "seconds": time.perf_counter() - t,
+          "per_kernel_s": secs, "ptxas": ptxas})
+
+    t = time.perf_counter()
+    g = with_random_attrs(erdos_renyi(args.n, args.degree, directed=False,
+                                      seed=args.seed), seed=args.seed + 1)
+    t_graph = time.perf_counter() - t
+    sess, state, policy, t_session = build_session(g, args, dev)
+    plan = state.plan
+    emit({"phase": "index", "n": g.n, "edges": g.n_edges, "window": "KHop(2)",
+          "method": "emc", "graph_s": t_graph, "session_build_s": t_session,
+          "emc_build_s": state.index.stats.get("t_total_s"),
+          "blocks": int(state.index.num_blocks),
+          "members": int(state.index.block_members.size),
+          "links": int(state.index.stats.get("num_links", 0)),
+          "plan_bytes": plan.plan_nbytes(), "block_capacity": plan.block_capacity,
+          "pass1_rows": int(plan.pass1.seg_tiles.numel()),
+          "pass2_rows": int(plan.pass2.seg_tiles.numel()),
+          "p1_ell_is_none": plan.p1_ell is None, "policy": str(policy)})
+
+    per_pass, k1, k1_err = kernel_segment_sum(plan, g.attrs["val"], dev,
+                                              args.reps, rng)
+    emit({"phase": "kernel:segment_sum", "check": "ok", "max_abs_err": k1_err,
+          "per_pass": per_pass, **k1})
+    k2 = kernel_bitset_expand(g, dev, args.reps, rng)
+    emit({"phase": "kernel:bitset_expand", "check": "ok", **k2})
+
+    main = drive_main_path(sess, state, args, rng)
+    emit({"phase": "session", **main})
+    emit({"phase": "profile", **profile_phase(
+        sess, state, args, rng, dev,
+        {"run": main["run_ms"], "update": main["update_ms"]})})
+    launches = main["launches"]
+    check(launches["segment_sum"] > 0, "the main path launched no K1")
+    check(launches["bitset_expand"] > 0, "the main path launched no K2")
+
+    rows = [
+        {"name": "segment_sum", "route": "cuda",
+         "source": "src/repro_torch/csrc/segment_sum.cu",
+         "replaces": "src/repro/kernels/segment_reduce/segment_reduce.py:69",
+         "launches": launches["segment_sum"], "max_abs_err": k1_err,
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"], "check": "ok"},
+        {"name": "bitset_expand", "route": "cuda",
+         "source": "src/repro_torch/csrc/bitset_expand.cu",
+         "replaces": "src/repro/kernels/bitset_expand/bitset_expand.py:81",
+         "launches": launches["bitset_expand"], "max_abs_err": k2["max_abs_err"],
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"], "check": "ok"},
+    ]
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write("\n".join(_LINES + [json.dumps({"kernels": rows})]) + "\n")
+    print(smi, flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--n", type=int, default=100_000)
+    ap.add_argument("--degree", type=float, default=10.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--batches", type=int, default=20)
+    ap.add_argument("--inserts", type=int, default=100)
+    ap.add_argument("--deletes", type=int, default=25)
+    ap.add_argument("--oracle-vertices", type=int, default=256)
+    ap.add_argument("--reps", type=int, default=20, help="timed launches")
+    ap.add_argument("--out", default=None, help="also write the JSON lines here")
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "measures the card and has nothing to run without one",
+              file=sys.stderr)
+        return 2
+    run(args, torch.device("cuda"))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

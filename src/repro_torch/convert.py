@@ -1,0 +1,72 @@
+"""Carry index and plan state across from the reference, as numpy arrays.
+
+The reference package's ``DBIndex`` and device ``DBIndexPlan`` flatten to
+plain arrays (``np.asarray`` of each field); these functions rebuild the
+port's objects from them, so the two packages can be fed the *same* index
+and plan and their query paths compared in isolation from the host
+builders.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.dbindex import DBIndex
+from repro_torch.core.engine_torch import DBIndexPlan
+from repro_torch.device import resolve_device, upload
+from repro_torch.kernels.segment_reduce.ops import TilePlan
+
+DBINDEX_FIELDS = ("block_members", "block_offsets", "link_block",
+                  "link_owner_offsets")
+TILE_PLAN_ARRAYS = ("gather_padded", "seg_tiles", "m2out", "first_visit")
+TILE_PLAN_INTS = ("num_segments", "num_out_tiles", "tm", "ts")
+
+
+def dbindex_from_arrays(arrays: Mapping) -> DBIndex:
+    """A port :class:`DBIndex` from the reference's fields: the four arrays
+    of :data:`DBINDEX_FIELDS`, ``n``, ``num_blocks`` and (optionally)
+    ``stats``."""
+    return DBIndex(
+        n=int(arrays["n"]),
+        num_blocks=int(arrays["num_blocks"]),
+        block_members=np.array(arrays["block_members"], np.int32),
+        block_offsets=np.array(arrays["block_offsets"], np.int64),
+        link_block=np.array(arrays["link_block"], np.int32),
+        link_owner_offsets=np.array(arrays["link_owner_offsets"], np.int64),
+        stats=dict(arrays.get("stats", {})),
+    )
+
+
+def _tile_plan(arrays: Mapping, prefix: str, dev: torch.device) -> TilePlan:
+    return TilePlan(
+        **{k: upload(arrays[f"{prefix}.{k}"], dev)
+           for k in TILE_PLAN_ARRAYS},
+        **{k: int(arrays[f"{prefix}.{k}"]) for k in TILE_PLAN_INTS},
+        device=dev,
+    )
+
+
+def dbindex_plan_from_arrays(arrays: Mapping, torch_device="cuda") -> DBIndexPlan:
+    """A port :class:`DBIndexPlan` on ``torch_device`` from the reference
+    plan's fields: ``pass1.<f>`` / ``pass2.<f>`` for every ``TilePlan``
+    field (:data:`TILE_PLAN_ARRAYS` + :data:`TILE_PLAN_INTS`),
+    ``block_sizes``, ``link_counts``, ``p1_ell`` / ``p2_ell`` (``None``
+    when the reference plan has none), ``n``, ``num_blocks`` and
+    ``block_capacity``."""
+    dev = resolve_device(torch_device)
+    ell = {k: None if arrays.get(k) is None else upload(arrays[k], dev)
+           for k in ("p1_ell", "p2_ell")}
+    return DBIndexPlan(
+        n=int(arrays["n"]),
+        num_blocks=int(arrays["num_blocks"]),
+        block_capacity=int(arrays["block_capacity"]),
+        pass1=_tile_plan(arrays, "pass1", dev),
+        pass2=_tile_plan(arrays, "pass2", dev),
+        block_sizes=upload(arrays["block_sizes"], dev, np.float32),
+        link_counts=upload(arrays["link_counts"], dev, np.float32),
+        device=dev,
+        **ell,
+    )

@@ -1,0 +1,832 @@
+"""Unified window-analytics API: declarative specs, engine registry, Session.
+
+The paper's GWQ abstraction (Definition 3) is one algebraic object —
+``GWQ(G, W, Σ, A)`` — and this module gives it one API surface:
+
+* :class:`QuerySpec` — a declarative value object naming (W, Σ, A).  The
+  window may be any :class:`~repro_torch.core.windows.WindowExpr` — the two
+  paper leaves (:class:`~repro_torch.core.windows.KHopWindow` /
+  :class:`~repro_torch.core.windows.TopologicalWindow`, or shorthand
+  ``("khop", 2)`` / ``"topological"``) or a composite expression
+  (``Union`` / ``Intersect`` / ``Diff`` / ``Filter`` over direction-aware
+  leaves).  Specs canonicalize their window, so algebraically equal
+  queries (``Union(A, B)`` vs ``Union(B, A)``) hit one cached plan.
+
+* **Window lowering** — two paths, chosen per (expression, monoid set) by
+  the planner (:func:`plan_window_program`): the *generic* path evaluates
+  the expression to per-vertex member sets (packed-bitset combinators) and
+  feeds the unchanged DBIndex builder/plan pipeline; the *algebraic* fast
+  path skips materialization where the algebra allows — idempotent monoids
+  evaluate a ``Union`` as ``combine(result(A), result(B))`` over the
+  children's existing materializations, and sum-monoid channels ride
+  inclusion–exclusion (``Σ(A∪B) = Σ(A) + Σ(B) − Σ(A∩B)``) with only the
+  (smaller) intersection materialized.
+* :class:`EngineRegistry` — every backend declares an
+  :class:`EngineCapability` (window kinds, aggregates, device / sharded /
+  incremental flags) and the planner selects by capability; an
+  :class:`UnsupportedQueryError` lists what *is* available when nothing
+  matches.  The ``torch`` engine (the DBIndex device plan, kernels K1/K2)
+  takes the reference's ``jax`` row.
+* :func:`compile_queries` — dedups windows across specs, groups by
+  (window, attr, engine), and fuses all aggregates sharing a window into
+  one multi-channel plan (k aggregates collapse to one gather feeding k
+  stacked monoid segment-reduces).
+* :class:`Session` — owns graph + indices + compiled device plans, routes
+  :class:`~repro_torch.core.updates.UpdateBatch` streams through the
+  incremental maintenance path (device plans survive updates via plan
+  patching), and serves ``run`` / ``run_many`` traffic.  Device plans live
+  on ``torch_device`` (the card unless the caller asks for the CPU).
+* :class:`SessionView` — a read snapshot pinned at one version.  Device
+  plans are patched in place, so a view reads only while the session is
+  still at its version; a view overtaken by an update raises instead of
+  answering from a half-new plan.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch import obs as _obs
+from repro_torch.core import engine_torch as et
+from repro_torch.core.aggregates import (
+    AGGREGATES,
+    ALL_REGISTERED,
+    CHANNEL_AGG,
+    register_aggregate,  # noqa: F401  (re-export: the open-registry API)
+)
+from repro_torch.core.graph import Graph
+from repro_torch.core.windows import (
+    Intersect,
+    KHopWindow,
+    TopologicalWindow,
+    Union,
+    WindowExpr,
+    canonicalize,
+    window_kind_of,
+)
+from repro_torch.device import resolve_device
+
+#: live view over the open aggregate registry — capabilities declared with
+#: it serve aggregates registered *after* the engine was
+ALL_AGGREGATES = ALL_REGISTERED
+
+# ---------------------------------------------------------------------- #
+#  Declarative specs
+# ---------------------------------------------------------------------- #
+def as_window(spec):
+    """Normalize a window spec — a :class:`WindowExpr` (canonicalized),
+    ``"topological"`` or ``("khop", k)`` shorthand."""
+    if isinstance(spec, WindowExpr):
+        return canonicalize(spec)
+    if spec == "topological":
+        return TopologicalWindow()
+    if isinstance(spec, (tuple, list)) and len(spec) == 2 and spec[0] == "khop":
+        return KHopWindow(int(spec[1]))
+    raise TypeError(f"not a window spec: {spec!r}")
+
+
+def window_kind(window) -> str:
+    """Capability kind of a window: the two paper leaves keep their names;
+    everything else — combinators, filters, direction-variant k-hop leaves
+    — is ``"composite"`` and is served by the engines whose capability row
+    declares it (the generic materialized lowering or, where the algebra
+    allows, the fast path)."""
+    return window_kind_of(window)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuerySpec:
+    """One graph window function (W, Σ, A) plus an optional engine hint.
+
+    ``engine=None`` lets the planner pick by capability; naming an engine
+    pins it (and fails loudly if the capability doesn't cover the query).
+    """
+
+    window: object
+    agg: str = "sum"
+    attr: str = "val"
+    engine: Optional[str] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "window", as_window(self.window))
+        if self.agg not in AGGREGATES:
+            raise ValueError(f"unknown aggregate {self.agg!r} "
+                             f"(have {sorted(AGGREGATES)})")
+
+
+class UnsupportedQueryError(ValueError):
+    """No registered engine capability covers the requested query."""
+
+
+# ---------------------------------------------------------------------- #
+#  Capability-based engine registry
+# ---------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class EngineCapability:
+    """What one backend can serve.  Selection is purely declarative."""
+
+    name: str
+    windows: Tuple[str, ...]  # of {"khop", "topological"}
+    aggregates: frozenset
+    device: bool = False  # runs on the torch data plane (the card)
+    sharded: bool = False  # needs a device mesh across cards
+    incremental: bool = False  # index survives UpdateBatches
+    priority: int = 0  # higher wins among matches
+
+    def covers(self, window, aggs: Sequence[str]) -> bool:
+        return window_kind(window) in self.windows and set(aggs) <= self.aggregates
+
+
+def _cap_row(c: "EngineCapability") -> str:
+    """One self-explaining capability-table row (window kinds, aggregates,
+    and the device/sharded/incremental flags) for planner error messages."""
+    return (
+        f"{c.name}: windows={c.windows}, aggs={sorted(c.aggregates)}, "
+        f"device={c.device}, sharded={c.sharded}, incremental={c.incremental}"
+    )
+
+
+class EngineRegistry:
+    """Backends register (capability, runner); the planner selects by need.
+
+    A runner evaluates *all* aggregates of one window in a single call —
+    ``runner(g, window, values, aggs, index=None, plan=None, **opts) ->
+    {agg: ndarray}`` — so fused multi-channel execution is the interface,
+    not an afterthought; host backends simply loop.
+    """
+
+    def __init__(self):
+        self._caps: Dict[str, EngineCapability] = {}
+        self._runners: Dict[str, object] = {}
+
+    def register(self, cap: EngineCapability, runner) -> None:
+        self._caps[cap.name] = cap
+        self._runners[cap.name] = runner
+
+    def capabilities(self) -> Tuple[EngineCapability, ...]:
+        return tuple(self._caps.values())
+
+    def capability(self, name: str) -> EngineCapability:
+        if name not in self._caps:
+            raise UnsupportedQueryError(
+                f"unknown engine {name!r}; registered: {sorted(self._caps)}"
+            )
+        return self._caps[name]
+
+    def select(
+        self,
+        window,
+        aggs: Sequence[str],
+        *,
+        engine: Optional[str] = None,
+        device: Optional[bool] = None,
+        sharded: bool = False,
+        incremental: Optional[bool] = None,
+    ) -> str:
+        """Pick an engine by capability; raise with the full table if none fit."""
+        if engine is not None:
+            cap = self.capability(engine)
+            if not cap.covers(window, aggs):
+                raise UnsupportedQueryError(
+                    f"engine {engine!r} does not cover "
+                    f"({window_kind(window)}, {sorted(set(aggs))}): it serves "
+                    f"{_cap_row(cap)}"
+                )
+            return engine
+        matches = [
+            c for c in self._caps.values()
+            if c.covers(window, aggs)
+            and (device is None or c.device == device)
+            and c.sharded == sharded
+            and (incremental is None or c.incremental == incremental)
+        ]
+        if not matches:
+            table = "; ".join(_cap_row(c) for c in self._caps.values())
+            raise UnsupportedQueryError(
+                f"no engine serves ({window_kind(window)}, {sorted(set(aggs))}, "
+                f"device={device}, sharded={sharded}, "
+                f"incremental={incremental}) — registered: {table}"
+            )
+        return max(matches, key=lambda c: c.priority).name
+
+    def run(self, name: str, g: Graph, window, values, aggs: Sequence[str],
+            index=None, plan=None, **opts) -> Dict[str, np.ndarray]:
+        cap = self.capability(name)
+        if not cap.covers(window, aggs):
+            raise UnsupportedQueryError(
+                f"engine {name!r} does not cover "
+                f"({window_kind(window)}, {sorted(set(aggs))}): it serves "
+                f"{_cap_row(cap)}"
+            )
+        unknown = set(opts) - KNOWN_OPTS
+        if unknown:  # typos must fail loudly, not silently use defaults
+            raise TypeError(
+                f"unknown engine option(s) {sorted(unknown)}; "
+                f"known: {sorted(KNOWN_OPTS)}"
+            )
+        return self._runners[name](g, window, np.asarray(values), tuple(aggs),
+                                   index=index, plan=plan, **opts)
+
+
+
+# every option any runner understands; EngineRegistry.run rejects the rest
+KNOWN_OPTS = frozenset({
+    "limit",  # nonindex
+    "method", "num_hashes", "cluster_hops", "bfs_batch", "pair_budget",
+    "seed",  # build_dbindex
+    "tm", "ts", "headroom", "torch_device",  # device
+})
+
+
+def _pick(opts: dict, *names) -> dict:
+    return {k: opts[k] for k in names if k in opts}
+
+
+def recompile_count() -> int:
+    """Distinct plan shape signatures the fused query executor has run in
+    this process (:func:`repro_torch.core.engine_torch.signature_count`) —
+    the port's analogue of the reference's jit cache entries, and the ONE
+    number the zero-respecialization contract is asserted on."""
+    return et.signature_count()
+
+
+def _run_nonindex(g, window, values, aggs, index=None, plan=None, **opts):
+    from repro_torch.core.nonindex import query_pervertex
+
+    kw = _pick(opts, "limit")
+    return {a: query_pervertex(g, window, values, a, **kw) for a in aggs}
+
+
+def _run_bitset(g, window, values, aggs, index=None, plan=None, **opts):
+    from repro_torch.core.nonindex import query_batched_bitset
+
+    return {a: query_batched_bitset(g, window, values, a) for a in aggs}
+
+
+def _build_dbindex(g, window, opts):
+    from repro_torch.core.dbindex import build_dbindex
+
+    kw = _pick(opts, "method", "num_hashes", "cluster_hops", "bfs_batch",
+               "pair_budget", "seed")
+    if isinstance(window, TopologicalWindow):
+        kw.setdefault("method", "mc")
+    return build_dbindex(g, window, **kw)
+
+
+def _run_dbindex(g, window, values, aggs, index=None, plan=None, **opts):
+    index = index if index is not None else _build_dbindex(g, window, opts)
+    return {a: index.query(values, a) for a in aggs}
+
+
+def _run_iindex(g, window, values, aggs, index=None, plan=None, **opts):
+    from repro_torch.core.iindex import build_iindex
+
+    index = index if index is not None else build_iindex(g)
+    return {a: index.query(values, a) for a in aggs}
+
+
+def _run_torch_dbindex(g, window, values, aggs, index=None, plan=None, **opts):
+    if plan is None:
+        index = index if index is not None else _build_dbindex(g, window, opts)
+        plan = et.plan_from_dbindex(
+            index, **_pick(opts, "tm", "ts", "headroom", "torch_device"))
+    outs = et.query_dbindex_multi(plan, values, tuple(aggs))
+    return {a: o.cpu().numpy() for a, o in zip(aggs, outs)}
+
+
+def _default_registry() -> EngineRegistry:
+    r = EngineRegistry()
+    both = ("khop", "topological")
+    # "composite" marks the engines that consume *materialized* window sets
+    # (bitset algebra, DBIndex blocks and the device plans built from
+    # them) — the generic WindowExpr lowering; per-vertex-BFS and
+    # structure-specific backends (nonindex, iindex) stay leaf-only
+    any_w = both + ("composite",)
+    r.register(EngineCapability("nonindex", both, ALL_AGGREGATES, priority=0),
+               _run_nonindex)
+    r.register(EngineCapability("bitset", any_w, ALL_AGGREGATES, priority=10),
+               _run_bitset)
+    r.register(EngineCapability("dbindex", any_w, ALL_AGGREGATES,
+                                incremental=True, priority=30), _run_dbindex)
+    r.register(EngineCapability("iindex", ("topological",), ALL_AGGREGATES,
+                                incremental=True, priority=40), _run_iindex)
+    r.register(EngineCapability("torch", any_w, ALL_AGGREGATES, device=True,
+                                incremental=True, priority=50),
+               _run_torch_dbindex)
+    return r
+
+
+DEFAULT_REGISTRY = _default_registry()
+
+# ---------------------------------------------------------------------- #
+#  Algebraic fast-path planner (per (expr, monoid) lowering choice)
+# ---------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class WindowProgram:
+    """Algebraic evaluation plan for one composite window.
+
+    ``terms`` are the canonical sub-expressions that get materialized
+    (index + plan each); the composite's monoid channels are reassembled
+    from the terms' channel results: sum-monoid channels as
+    ``Σ sum_coefs[t] · term[t]`` (inclusion–exclusion), idempotent channels
+    as ``combine(term[t] for t in idem_terms)``.  ``term_aggs`` is the
+    closed set of canonical channel aggregates requested from every term
+    (one fused multi-channel query per term).
+    """
+
+    terms: Tuple[object, ...]
+    term_aggs: Tuple[str, ...]
+    sum_coefs: Tuple[int, ...]
+    idem_terms: Tuple[int, ...]
+
+
+def _group_channels(aggs: Sequence[str]) -> set:
+    chans = set()
+    for name in aggs:
+        a = AGGREGATES[name]
+        chans |= set(zip((m.name for m in a.monoids), a.channel_sources))
+    return chans
+
+
+def plan_window_program(window, aggs: Sequence[str]):
+    """Fast-path plan for (window, aggs), or None → generic materialization.
+
+    The choice is per (expression shape, monoid set): a ``Union`` whose
+    aggregates are all idempotent (min/max) evaluates as a pointwise
+    combine over the children's materializations (any arity); once a
+    sum-monoid channel is involved, the union rides pairwise
+    inclusion–exclusion (``Σ(A∪B) = Σ(A) + Σ(B) − Σ(A∩B)``) — the
+    intersection is the only extra materialization and is never larger
+    than either child.  Wider unions with sum channels, and every other
+    combinator, take the generic path (still correct — just materialized).
+    """
+    if not isinstance(window, Union):
+        return None
+    channels = _group_channels(aggs)
+    if any(ch not in CHANNEL_AGG for ch in channels):
+        return None  # a channel with no canonical per-term aggregate
+    kids = window.exprs
+    has_sum = any(m == "sum" for m, _ in channels)
+    if has_sum:
+        if len(kids) != 2:
+            return None  # inclusion–exclusion kept pairwise (2^n terms)
+        terms = kids + (canonicalize(Intersect(*kids)),)
+        coefs = (1, 1, -1)
+    else:
+        terms = kids
+        coefs = (1,) * len(kids)
+    term_aggs = tuple(sorted({CHANNEL_AGG[ch] for ch in channels}))
+    return WindowProgram(terms=terms, term_aggs=term_aggs, sum_coefs=coefs,
+                         idem_terms=tuple(range(len(kids))))
+
+
+def _combine_program(prog: WindowProgram, aggs: Sequence[str], term_outs):
+    """Reassemble the composite's channels from per-term results and
+    finalize.  Pure pointwise arithmetic (works on [n] vectors and [B, n]
+    batches alike); exact — hence bit-identical to direct set evaluation —
+    on integer-valued attributes, and dtype-preserving on the int paths
+    (coefficients are ±1, so no float upcast sneaks in)."""
+    outs, chan_cache = {}, {}
+    for name in aggs:
+        a = AGGREGATES[name]
+        chans = []
+        for m, src in zip(a.monoids, a.channel_sources):
+            key = (m.name, src)
+            if key not in chan_cache:
+                ca = CHANNEL_AGG[key]
+                if m.name == "sum":
+                    acc = None
+                    for coef, out in zip(prog.sum_coefs, term_outs):
+                        v = np.asarray(out[ca])
+                        v = v if coef == 1 else v * coef
+                        acc = v if acc is None else acc + v
+                else:
+                    acc = np.asarray(term_outs[prog.idem_terms[0]][ca])
+                    for t in prog.idem_terms[1:]:
+                        acc = m.np_op(acc, np.asarray(term_outs[t][ca]))
+                chan_cache[key] = acc
+            chans.append(chan_cache[key])
+        outs[name] = a.finalize_np(*chans)
+    return outs
+
+
+# ---------------------------------------------------------------------- #
+#  Multi-query compiler
+# ---------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class PlanGroup:
+    """All aggregates that share one (window, attr, engine) — one fused plan."""
+
+    window: object
+    attr: str
+    engine: str
+    aggs: Tuple[str, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class CompiledQueries:
+    """Output of :func:`compile_queries`: fused groups + spec back-pointers."""
+
+    specs: Tuple[QuerySpec, ...]
+    groups: Tuple[PlanGroup, ...]
+    spec_slots: Tuple[Tuple[int, int], ...]  # spec i -> (group, agg position)
+
+    def results_for_specs(self, group_results: Sequence[Dict[str, np.ndarray]]):
+        return [
+            group_results[gi][self.groups[gi].aggs[ai]]
+            for gi, ai in self.spec_slots
+        ]
+
+
+def compile_queries(
+    specs: Sequence[QuerySpec],
+    *,
+    registry: EngineRegistry = None,
+    device: Optional[bool] = None,
+    sharded: bool = False,
+) -> CompiledQueries:
+    """Plan a batch of queries: dedup windows, select engines by capability,
+    fuse aggregates sharing a (window, attr, engine) into one group."""
+    registry = registry or DEFAULT_REGISTRY
+    specs = tuple(
+        s if isinstance(s, QuerySpec) else QuerySpec(*s) for s in specs
+    )
+    # first pass: resolve each spec's engine (explicit pin or union-capability
+    # selection over every spec sharing the window — so sum+min on one window
+    # land on an engine that can fuse both)
+    union: Dict[Tuple[object, str], set] = {}
+    for s in specs:
+        if s.engine is None:
+            union.setdefault((s.window, s.attr), set()).add(s.agg)
+    chosen: Dict[Tuple[object, str], str] = {
+        key: registry.select(key[0], sorted(aggs), device=device, sharded=sharded)
+        for key, aggs in union.items()
+    }
+    # second pass: group by (window, attr, engine), dedup aggregates in order
+    order: List[Tuple[object, str, str]] = []
+    agg_lists: Dict[Tuple[object, str, str], List[str]] = {}
+    slots: List[Tuple[int, int]] = []
+    for s in specs:
+        engine = s.engine or chosen[(s.window, s.attr)]
+        if s.engine is not None:  # validate explicit pins eagerly
+            registry.select(s.window, (s.agg,), engine=engine)
+        key = (s.window, s.attr, engine)
+        if key not in agg_lists:
+            agg_lists[key] = []
+            order.append(key)
+        if s.agg not in agg_lists[key]:
+            agg_lists[key].append(s.agg)
+        slots.append((order.index(key), agg_lists[key].index(s.agg)))
+    groups = tuple(
+        PlanGroup(window=w, attr=attr, engine=e, aggs=tuple(agg_lists[(w, attr, e)]))
+        for (w, attr, e) in order
+    )
+    return CompiledQueries(specs=specs, groups=groups, spec_slots=tuple(slots))
+
+
+# ---------------------------------------------------------------------- #
+#  Session: graph + indices + compiled plans under streamed updates
+# ---------------------------------------------------------------------- #
+_DBINDEX_ENGINES = {"dbindex", "torch"}
+_IINDEX_ENGINES = {"iindex"}
+
+
+def _kind_of(engine: str) -> Optional[str]:
+    """Index kind behind an engine name, or None for stateless backends."""
+    if engine in _DBINDEX_ENGINES:
+        return "dbindex"
+    if engine in _IINDEX_ENGINES:
+        return "iindex"
+    return None
+
+
+class Session:
+    """Stateful serving facade over compiled window queries.
+
+    Builds one index (and, for device engines, one device plan) per distinct
+    window — shared by every query group on that window — then keeps all of
+    it fresh under :meth:`update` via the incremental maintenance path
+    (batched index update + tile-group plan patching + staleness policy), so
+    device plans survive a stream of ``UpdateBatch``es with unchanged
+    shapes.
+
+    ``torch_device`` places every device plan and the device BFS; it
+    defaults to the card and raises when CUDA is absent unless the caller
+    passes ``"cpu"``.  ``device`` keeps the reference's meaning: it selects
+    host or device engines in :func:`compile_queries`.
+    """
+
+    def __init__(
+        self,
+        g: Graph,
+        specs: Sequence[QuerySpec],
+        *,
+        registry: EngineRegistry = None,
+        device: Optional[bool] = None,
+        policy=None,
+        method: str = "emc",
+        tm: int = 512,
+        ts: int = 512,
+        plan_headroom: float = 0.5,
+        compact_garbage: Optional[float] = None,
+        use_device_bfs: Optional[bool] = None,
+        obs=None,
+        tracer=None,
+        torch_device="cuda",
+    ):
+        self.torch_device = resolve_device(torch_device)
+        self.registry = registry or DEFAULT_REGISTRY
+        self.obs = obs if obs is not None else _obs.get_registry()
+        self.tracer = tracer if tracer is not None else _obs.get_tracer()
+        self._m_updates = self.obs.counter(
+            "repro_session_updates_total", "UpdateBatches applied")
+        self._m_snapshots = self.obs.counter(
+            "repro_snapshots_total", "SessionView captures")
+        self.compiled = compile_queries(specs, registry=self.registry,
+                                        device=device)
+        self.graph = g
+        self._opts = dict(tm=tm, ts=ts, method=method,
+                          torch_device=self.torch_device)
+        self._state_cfg = dict(
+            method=method, policy=policy, tm=tm, ts=ts,
+            plan_headroom=plan_headroom,
+            compact_garbage=0.5 if compact_garbage is None else compact_garbage,
+            use_device_bfs=use_device_bfs,
+        )
+        self.updates_applied = 0
+        #: monotonically increasing state version: bumped once per
+        #: :meth:`update`.  Snapshots pin it.
+        self.version = 0
+        # per-group lowering programs: composite windows on stateful
+        # dbindex-backed engines may decompose algebraically (their *terms*
+        # get materialized instead of the composite itself)
+        self._programs: Tuple[Optional[WindowProgram], ...] = tuple(
+            plan_window_program(grp.window, grp.aggs)
+            if (_kind_of(grp.engine) == "dbindex"
+                and window_kind(grp.window) == "composite")
+            else None
+            for grp in self.compiled.groups
+        )
+        # one stateful engine per (materialized window, index kind) — shared
+        # by every group (and every program term) on that key, so the
+        # device flag is the OR over the sharing groups (a host group must
+        # not strip the plan a device group compiled)
+        self._states: Dict[Tuple[object, str], object] = {}
+        need_device: Dict[Tuple[object, str], bool] = {}
+        for gi, grp in enumerate(self.compiled.groups):
+            kind = _kind_of(grp.engine)
+            if kind is None:
+                continue
+            cap = self.registry.capability(grp.engine)
+            for term in self._group_terms(gi):
+                key = (term, kind)
+                need_device[key] = need_device.get(key, False) or cap.device
+        for (window, kind), dev in need_device.items():
+            self._states[(window, kind)] = self._make_state(window, kind, dev)
+
+    def _make_state(self, window, kind: str, device: bool):
+        from repro_torch.core.streaming import StreamingEngine
+
+        cfg = self._state_cfg
+        return StreamingEngine(
+            self.graph, window, index_kind=kind, method=cfg["method"],
+            policy=cfg["policy"], device=device, tm=cfg["tm"], ts=cfg["ts"],
+            plan_headroom=cfg["plan_headroom"],
+            compact_garbage=cfg["compact_garbage"],
+            use_device_bfs=cfg["use_device_bfs"],
+            obs=self.obs, tracer=self.tracer, torch_device=self.torch_device,
+        )
+
+    # ------------------------------------------------------------------ #
+    def _group_terms(self, gi: int) -> Tuple[object, ...]:
+        """Windows materialized for group ``gi``: the program's terms on
+        the algebraic fast path, else the group window itself."""
+        prog = self._programs[gi]
+        return prog.terms if prog is not None else (
+            self.compiled.groups[gi].window,)
+
+    def _group_artifacts(self, gi: int) -> Tuple[Tuple[object, object], ...]:
+        """Per-term (index, plan) pairs of group ``gi``."""
+        kind = _kind_of(self.compiled.groups[gi].engine)
+        out = []
+        for term in self._group_terms(gi):
+            state = self._states.get((term, kind)) if kind else None
+            out.append((state.index, state.plan) if state is not None
+                       else (None, None))
+        return tuple(out)
+
+    def _values_for(self, grp: PlanGroup, values, graph=None):
+        if values is None:
+            return (self.graph if graph is None else graph).attrs[grp.attr]
+        if isinstance(values, dict):
+            return values[grp.attr]
+        return values
+
+    # ------------------------------------------------------------------ #
+    #  Group executors — shared by Session.run/run_many and SessionView
+    # ------------------------------------------------------------------ #
+    def _exec_term(self, grp: PlanGroup, window, index, plan, values, g,
+                   aggs):
+        with self.tracer.span("query.term", cat="query",
+                              engine=grp.engine, window=window.name()):
+            return self.registry.run(
+                grp.engine, g, window, values, aggs,
+                index=index, plan=plan, **self._opts,
+            )
+
+    def _exec_term_many(self, grp: PlanGroup, window, index, plan, vb, g,
+                        aggs):
+        """One [B, n] batch through one materialized window.
+
+        A device plan takes the whole batch in one fused query: the batch
+        rides the channel columns, so each pass is one K1 launch.  Host
+        engines loop the batch.
+        """
+        with self.tracer.span("query.term", cat="query", engine=grp.engine,
+                              window=window.name(), rows=len(vb)):
+            if plan is not None and grp.engine == "torch":
+                outs = et.query_dbindex_multi(plan, vb, tuple(aggs))
+                return {a: o.cpu().numpy() for a, o in zip(aggs, outs)}
+            rows = [
+                self.registry.run(grp.engine, g, window, v, aggs,
+                                  index=index, plan=plan, **self._opts)
+                for v in vb
+            ]
+            return {a: np.stack([r[a] for r in rows]) for a in aggs}
+
+    def _exec_group(self, gi: int, arts, values, graph=None):
+        grp = self.compiled.groups[gi]
+        g = self.graph if graph is None else graph
+        vals = self._values_for(grp, values, graph=g)
+        prog = self._programs[gi]
+        if prog is None:
+            index, plan = arts[0]
+            return self._exec_term(grp, grp.window, index, plan, vals, g,
+                                   grp.aggs)
+        term_outs = [
+            self._exec_term(grp, term, index, plan, vals, g, prog.term_aggs)
+            for term, (index, plan) in zip(prog.terms, arts)
+        ]
+        return _combine_program(prog, grp.aggs, term_outs)
+
+    def _exec_group_many(self, gi: int, arts, vb, graph=None):
+        grp = self.compiled.groups[gi]
+        g = self.graph if graph is None else graph
+        prog = self._programs[gi]
+        if prog is None:
+            index, plan = arts[0]
+            return self._exec_term_many(grp, grp.window, index, plan, vb, g,
+                                        grp.aggs)
+        term_outs = [
+            self._exec_term_many(grp, term, index, plan, vb, g,
+                                 prog.term_aggs)
+            for term, (index, plan) in zip(prog.terms, arts)
+        ]
+        return _combine_program(prog, grp.aggs, term_outs)
+
+    # ------------------------------------------------------------------ #
+    def snapshot(self) -> "SessionView":
+        """Pin the current version for reads (see :class:`SessionView`)."""
+        self._m_snapshots.inc()
+        return SessionView(
+            session=self,
+            graph=self.graph,
+            version=self.version,
+            artifacts=tuple(self._group_artifacts(gi)
+                            for gi in range(len(self.compiled.groups))),
+        )
+
+    def run(self, values=None) -> List[np.ndarray]:
+        """Evaluate every compiled spec; returns results in spec order.
+
+        ``values`` overrides the graph attribute(s): an array (applied to
+        every group) or a dict keyed by attr name.
+        """
+        return self.snapshot().run(values)
+
+    def run_many(self, values_batch) -> List[np.ndarray]:
+        """Serving-style traffic: evaluate all specs for a [B, n] batch of
+        attribute vectors in one fused query per device group."""
+        return self.snapshot().run_many(values_batch)
+
+    # ------------------------------------------------------------------ #
+    def update(self, batch) -> Dict:
+        """Stream one UpdateBatch through every stateful index + plan.
+
+        The graph edit is applied once and shared by every engine (their
+        index maintenance is per-window, the graph is not).  Bumps
+        :attr:`version`; each report carries the new version and the
+        engine's ``affected_owners`` array.  Attribute-value edits skip
+        index and plan maintenance (both are structure-only), except for a
+        :class:`~repro_torch.core.windows.Filter` predicate attribute,
+        whose states the streaming engines re-filter or rebuild.
+        """
+        from repro_torch.core.updates import apply_batch
+
+        with self.tracer.span("session.update", cat="update",
+                              size=batch.size, version=self.version + 1):
+            g2 = apply_batch(self.graph, batch)
+            reports = {}
+            for (window, kind), eng in self._states.items():
+                key = f"{window.name()}/{kind}"
+                with self.tracer.span("maintain", cat="update", state=key):
+                    reports[key] = eng.apply(batch, graph=g2)
+            self.graph = g2
+            self.updates_applied += 1
+            self.version += 1
+            self._m_updates.inc()
+            for rep in reports.values():
+                rep["version"] = self.version
+            return reports
+
+    def replay(self, batches) -> int:
+        """Replay an ordered batch stream through :meth:`update`.
+
+        ``batches`` yields :class:`~repro_torch.core.updates.UpdateBatch`es
+        or ``(version, batch)`` pairs (the WAL record shape — versions are
+        informational here; :attr:`version` advances once per batch).
+        Returns the number of batches applied.
+        """
+        applied = 0
+        for item in batches:
+            self.update(item[1] if isinstance(item, tuple) else item)
+            applied += 1
+        return applied
+
+    @property
+    def staleness(self) -> Dict[str, Dict]:
+        """Per-state sharing-loss telemetry (same keys as :meth:`update`
+        reports) plus each engine's reorganize count."""
+        return {
+            f"{window.name()}/{kind}": {**eng.staleness,
+                                        "reorg_count": eng.reorg_count}
+            for (window, kind), eng in self._states.items()
+        }
+
+
+# ---------------------------------------------------------------------- #
+#  SessionView: version-pinned read snapshot
+# ---------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class SessionView:
+    """A read view of a :class:`Session` pinned at one version.
+
+    Holds the graph and every group's (index, plan) by reference.  Graphs
+    and host indices are immutable, but device plans are patched in place
+    by :meth:`Session.update` (it saves re-uploading the plan), so a view
+    whose groups hold a device plan answers only while the session is still
+    at the view's version; once overtaken it raises rather than read a plan
+    that is partly the next version's.
+    """
+
+    session: Session
+    graph: Graph
+    version: int
+    #: per group: per materialized term, an (index, plan) pair — generic
+    #: groups hold one term, algebraic fast-path groups one per program term
+    artifacts: Tuple[Tuple[Tuple[object, object], ...], ...]
+
+    def _check_current(self, gi: int) -> None:
+        if (self.version != self.session.version
+                and any(plan is not None for _, plan in self.artifacts[gi])):
+            raise RuntimeError(
+                f"SessionView pinned at version {self.version} was overtaken "
+                f"by version {self.session.version}: device plans are patched "
+                "in place, so take a new snapshot()")
+
+    def run_group(self, gi: int, values=None) -> Dict[str, np.ndarray]:
+        """All aggregates of plan group ``gi`` (one fused query per
+        materialized term on device engines)."""
+        self._check_current(gi)
+        with self.session.tracer.span("query.group", cat="query", group=gi,
+                                      version=self.version):
+            return self.session._exec_group(gi, self.artifacts[gi], values,
+                                            graph=self.graph)
+
+    def run_group_many(self, gi: int, values_batch) -> Dict[str, np.ndarray]:
+        """[B, n] batch through plan group ``gi`` — one fused query per
+        materialized term on device engines."""
+        self._check_current(gi)
+        with self.session.tracer.span("query.group", cat="query", group=gi,
+                                      version=self.version, batched=True):
+            return self.session._exec_group_many(gi, self.artifacts[gi],
+                                                 values_batch,
+                                                 graph=self.graph)
+
+    def run(self, values=None) -> List[np.ndarray]:
+        groups = range(len(self.session.compiled.groups))
+        return self.session.compiled.results_for_specs(
+            [self.run_group(gi, values) for gi in groups]
+        )
+
+    def run_many(self, values_batch) -> List[np.ndarray]:
+        vb = np.asarray(values_batch)
+        if vb.ndim != 2:
+            raise ValueError("values_batch must be [B, n]")
+        groups = range(len(self.session.compiled.groups))
+        return self.session.compiled.results_for_specs(
+            [self.run_group_many(gi, vb) for gi in groups]
+        )

@@ -1,0 +1,454 @@
+"""Device (PyTorch/CUDA) query data plane for the DBIndex.
+
+The host-built index becomes a static *plan* of device tensors: two chained
+tile plans — members→blocks, then links→owners — each one fused gather +
+segment sum (kernel K1, DESIGN.md §2).
+
+:func:`query_dbindex_multi` is the fused multi-aggregate executor behind
+:mod:`repro_torch.core.api`: one K1 launch per pass feeds every sum channel
+(the channels stack into the columns of one matrix; a ``[B, n]`` batch of
+attribute vectors adds ``B`` columns per channel), and min/max ride dense
+ELL layouts or a masked ``scatter_reduce``, so k aggregates over one window
+cost roughly one query instead of k.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.aggregates import MONOIDS, TORCH_XP, pack_channels
+from repro_torch.core.dbindex import DBIndex
+from repro_torch.device import resolve_device, upload
+from repro_torch.kernels.segment_reduce.ops import (
+    TilePlan,
+    build_tile_plan,
+    patch_tile_plan,
+    segment_sum,
+)
+
+# ---------------------------------------------------------------------- #
+#  DBIndex plan
+# ---------------------------------------------------------------------- #
+#: ELL pad slot; :func:`_ell_reduce` clamps it to the appended identity row
+_ELL_SENTINEL = np.int32(np.iinfo(np.int32).max)
+
+
+@dataclasses.dataclass(frozen=True)
+class DBIndexPlan:
+    """Device plan.  ``block_capacity >= num_blocks`` pads the block-partial
+    vector ``T`` so that streamed updates appending secondary blocks keep
+    static shapes (capacity grows by powers of two → O(log) shape changes
+    over a stream instead of one per batch).
+
+    ``p1_ell`` / ``p2_ell`` are padded per-segment row layouts (ELL style)
+    for the idempotent monoids: blocks and owner link lists have tiny
+    bounded fan-in, so min/max evaluate as one dense gather + axis reduce
+    instead of a scatter.  min/max are order-insensitive, so the
+    formulation is bit-exact against any other evaluation order.  Pad slots
+    hold ``_ELL_SENTINEL``, which the query clamps to an appended row
+    holding the monoid identity."""
+
+    n: int
+    num_blocks: int
+    block_capacity: int
+    pass1: TilePlan  # members -> block partials
+    pass2: TilePlan  # block partials -> owner windows
+    block_sizes: torch.Tensor  # f32 [block_capacity] (for count/avg)
+    link_counts: torch.Tensor  # f32 [n]
+    device: torch.device
+    p1_ell: Optional[torch.Tensor] = None  # i32 [block_capacity, R1] member ids
+    p2_ell: Optional[torch.Tensor] = None  # i32 [n, R2] block ids
+
+    def array_nbytes(self) -> dict:
+        """Exact per-array device bytes, keyed ``pass1.<name>`` /
+        ``pass2.<name>`` / top-level array name."""
+        out = {}
+        for prefix, tp in (("pass1", self.pass1), ("pass2", self.pass2)):
+            for k, v in tp.array_nbytes().items():
+                out[f"{prefix}.{k}"] = v
+        for name in ("block_sizes", "link_counts", "p1_ell", "p2_ell"):
+            t = getattr(self, name)
+            if t is not None:
+                out[name] = int(t.numel() * t.element_size())
+        return out
+
+    def plan_nbytes(self) -> int:
+        """Total device bytes held by this plan (sum of per-array sizes)."""
+        return sum(self.array_nbytes().values())
+
+    def shape_signature(self) -> tuple:
+        """Every tensor shape of the plan — what a compiled executor would
+        specialize on (``num_blocks`` is data, not shape)."""
+        tensors = (self.pass1.gather_padded, self.pass1.seg_tiles,
+                   self.pass2.gather_padded, self.pass2.seg_tiles,
+                   self.block_sizes, self.link_counts, self.p1_ell,
+                   self.p2_ell)
+        return tuple(None if t is None else tuple(t.shape) for t in tensors)
+
+
+def _block_sizes_padded(index: DBIndex, capacity: int) -> np.ndarray:
+    sizes = np.zeros(capacity, np.float32)
+    sizes[: index.num_blocks] = np.diff(index.block_offsets)
+    return sizes
+
+
+def _pow2(x: int) -> int:
+    return 1 << (max(int(x), 1) - 1).bit_length()
+
+
+def _ell_rows(offsets: np.ndarray, items: np.ndarray, num_rows: int,
+              width: int) -> np.ndarray:
+    """Padded per-segment item matrix [num_rows, width], sentinel-padded."""
+    out = np.full((num_rows, width), _ELL_SENTINEL, np.int32)
+    sizes = np.diff(offsets).astype(np.int64)
+    row = np.repeat(np.arange(sizes.size, dtype=np.int64), sizes)
+    pos = np.arange(items.size) - np.repeat(offsets[:-1], sizes)
+    out[row, pos] = items
+    return out
+
+
+def _ell_from_index(index: DBIndex, cap: int, dev: torch.device):
+    """(p1_ell, p2_ell) for the min/max fast path, or (None, None) when a
+    degenerate fan-in distribution would blow the padded layout up (the
+    scatter path stays available — min/max are exact either way)."""
+    max_block = int(np.diff(index.block_offsets).max()) if index.num_blocks else 1
+    max_links = int(np.diff(index.link_owner_offsets).max()) if index.n else 1
+    r1, r2 = _pow2(max_block), _pow2(max_links)
+    # the same padding guard as the reference plan, so both packages pick
+    # the same layout for the same index
+    if (cap * r1 > max(16 * index.block_members.size, 1 << 16)
+            or index.n * r2 > max(16 * index.link_block.size, 1 << 16)):
+        return None, None
+    p1 = _ell_rows(index.block_offsets, index.block_members, cap, r1)
+    p2 = _ell_rows(index.link_owner_offsets, index.link_block, index.n, r2)
+    return upload(p1, dev), upload(p2, dev)
+
+
+def plan_from_dbindex(
+    index: DBIndex, tm: int = 512, ts: int = 512,
+    block_capacity: Optional[int] = None, headroom: float = 0.0,
+    torch_device="cuda",
+) -> DBIndexPlan:
+    dev = resolve_device(torch_device)
+    cap = max(int(block_capacity or 0), index.num_blocks, 1)
+    floors = None
+    if headroom > 0:
+        # pre-pad the block id space to the next power of two past the
+        # headroom so streamed secondary-block appends don't change the
+        # capacity (and hence the shapes) on the first few batches
+        cap = _pow2(int(cap * (1 + headroom)))
+        # appended secondary blocks take consecutive ids just past
+        # num_blocks, so the growth lands in a handful of specific tile
+        # groups — floor those at the expected rows of a full group of
+        # average-sized blocks instead of spreading slack uniformly
+        n_groups = max(1, -(-cap // ts))
+        avg_block = index.block_members.size / max(index.num_blocks, 1)
+        boost = -(-int(ts * avg_block * (1 + headroom)) // tm)
+        floors = np.ones(n_groups, np.int64)
+        g0 = index.num_blocks // ts
+        floors[g0: g0 + 4] = max(boost, 1)
+    member_block = np.asarray(index.member_block_ids, np.int64)
+    pass1 = build_tile_plan(index.block_members, member_block, cap, tm, ts,
+                            headroom=headroom, group_min_tiles=floors,
+                            torch_device=dev)
+    owner_ids = np.asarray(index.link_owner_ids, np.int64)
+    pass2 = build_tile_plan(index.link_block, owner_ids, index.n, tm, ts,
+                            headroom=headroom, torch_device=dev)
+    links = np.diff(index.link_owner_offsets).astype(np.float32)
+    p1_ell, p2_ell = _ell_from_index(index, cap, dev)
+    return DBIndexPlan(
+        n=index.n,
+        num_blocks=index.num_blocks,
+        block_capacity=cap,
+        pass1=pass1,
+        pass2=pass2,
+        block_sizes=upload(_block_sizes_padded(index, cap), dev, np.float32),
+        link_counts=upload(links, dev, np.float32),
+        device=dev,
+        p1_ell=p1_ell,
+        p2_ell=p2_ell,
+    )
+
+
+def patch_plan_dbindex(
+    plan: DBIndexPlan, index: DBIndex, changed_owners: np.ndarray,
+    compact_garbage: float = 0.5, headroom: float = 0.0,
+) -> DBIndexPlan:
+    """Incremental plan maintenance after ``update_dbindex_batch``.
+
+    The merged index keeps the primary block prefix intact and appends
+    secondary blocks, so pass 1 only re-lays-out the tile groups holding
+    appended block ids; pass 2 re-lays-out the groups containing
+    ``changed_owners`` (the batch's affected owner set).  Everything else
+    is kept from the live plan; shape-stable patches write into the live
+    tensors in place (see :func:`patch_tile_plan`).
+
+    Delete-heavy streams accumulate *garbage blocks* — blocks no owner
+    links to any more, whose member rows still occupy pass-1 tiles.  When
+    the garbage fraction crosses ``compact_garbage``, pass 1 is re-laid-out
+    without the garbage blocks' member rows (block ids are untouched, so
+    pass 2 is unaffected beyond the shape change).
+
+    When the updater fell back to a full rebuild (``last_full_rebuild``
+    stat), the appended-prefix invariant does not hold and splicing would
+    silently reuse stale tiles — build a fresh plan instead.
+    """
+    dev = plan.device
+    cap = plan.block_capacity
+    if index.num_blocks > cap:
+        cap = _pow2(index.num_blocks)
+    if index.stats.get("last_full_rebuild"):
+        return plan_from_dbindex(index, plan.pass1.tm, plan.pass1.ts,
+                                 block_capacity=cap, headroom=headroom,
+                                 torch_device=dev)
+    member_block = np.asarray(index.member_block_ids, np.int64)
+    linked = index.linked_blocks_mask()
+    # require actual garbage, not just fraction >= threshold: an empty or
+    # garbage-free index with compact_garbage == 0.0 would otherwise take
+    # the full pass-1 re-layout every batch (a spurious compaction that
+    # drops nothing — the delete-everything / zero-block degenerate cases)
+    has_garbage = index.num_blocks > 0 and bool(np.any(~linked))
+    if has_garbage and index.garbage_block_fraction(linked) >= compact_garbage:
+        keep = linked[member_block]
+        pass1 = build_tile_plan(
+            index.block_members[keep], member_block[keep], cap,
+            plan.pass1.tm, plan.pass1.ts, headroom=headroom, torch_device=dev,
+        )
+    else:
+        new_blocks = np.arange(plan.num_blocks, index.num_blocks, dtype=np.int64)
+        pass1 = patch_tile_plan(
+            plan.pass1,
+            index.block_members,
+            member_block,
+            cap,
+            new_blocks,
+        )
+    pass2 = patch_tile_plan(
+        plan.pass2,
+        index.link_block,
+        np.asarray(index.link_owner_ids, np.int64),
+        index.n,
+        np.asarray(changed_owners, np.int64),
+    )
+    links = np.diff(index.link_owner_offsets).astype(np.float32)
+    p1_ell, p2_ell = _patch_ell(plan, index, cap, changed_owners)
+    return DBIndexPlan(
+        n=index.n,
+        num_blocks=index.num_blocks,
+        block_capacity=cap,
+        pass1=pass1,
+        pass2=pass2,
+        block_sizes=upload(_block_sizes_padded(index, cap), dev, np.float32),
+        link_counts=upload(links, dev, np.float32),
+        device=dev,
+        p1_ell=p1_ell,
+        p2_ell=p2_ell,
+    )
+
+
+def _ell_rows_for_new_blocks(index: DBIndex, old_num_blocks: int,
+                             width: int) -> np.ndarray:
+    """Padded ELL rows for the blocks appended past ``old_num_blocks``
+    (relies on the appended-prefix invariant of phase-1 merges)."""
+    off = index.block_offsets[old_num_blocks:]
+    return _ell_rows(off - off[0], index.block_members[off[0]:],
+                     off.size - 1, width)
+
+
+def _ell_rows_for_owners(index: DBIndex, owners: np.ndarray,
+                         width: int) -> np.ndarray:
+    """Padded ELL rows of the given owners' link lists (vectorized
+    multi-slice gather)."""
+    counts = np.diff(index.link_owner_offsets)[owners]
+    starts = index.link_owner_offsets[owners]
+    off = np.zeros(owners.size + 1, np.int64)
+    np.cumsum(counts, out=off[1:])
+    items = index.link_block[
+        np.repeat(starts, counts)
+        + (np.arange(off[-1]) - np.repeat(off[:-1], counts))
+    ]
+    return _ell_rows(off, items, owners.size, width)
+
+
+def _patch_ell(plan: DBIndexPlan, index: DBIndex, cap: int,
+               changed_owners: np.ndarray):
+    """Incremental maintenance of the min/max ELL layouts: write only the
+    appended blocks' rows and the changed owners' rows, in place into the
+    live tensors; rebuild (a shape change, like capacity growth) only when
+    a row no longer fits its padded width."""
+    if plan.p1_ell is None:
+        return None, None
+    dev = plan.device
+    block_sizes = np.diff(index.block_offsets)
+    new_sizes = block_sizes[plan.num_blocks:]
+    link_sizes = np.diff(index.link_owner_offsets)
+    owners = np.asarray(changed_owners, np.int64)
+    r1, r2 = plan.p1_ell.shape[1], plan.p2_ell.shape[1]
+    if (cap != plan.block_capacity
+            or (new_sizes.size and int(new_sizes.max()) > r1)
+            or (owners.size and int(link_sizes[owners].max()) > r2)):
+        return _ell_from_index(index, cap, dev)
+    if new_sizes.size:
+        rows = _ell_rows_for_new_blocks(index, plan.num_blocks, r1)
+        ids = torch.arange(plan.num_blocks, index.num_blocks, device=dev)
+        plan.p1_ell.index_copy_(0, ids, upload(rows, dev))
+    if owners.size:
+        rows = _ell_rows_for_owners(index, owners, r2)
+        plan.p2_ell.index_copy_(0, torch.from_numpy(owners).to(dev),
+                                upload(rows, dev))
+    return plan.p1_ell, plan.p2_ell
+
+
+# ---------------------------------------------------------------------- #
+#  Queries
+# ---------------------------------------------------------------------- #
+def _ell_reduce(ell: torch.Tensor, vec: torch.Tensor, op: str) -> torch.Tensor:
+    """Dense padded reduce: one gather + axis reduce, no scatter.  ``vec``
+    is ``[S, B]``; the sentinel pad index is clamped explicitly to the
+    appended identity row ``S`` (torch indexing raises out of range where
+    ``jnp.take`` clips)."""
+    ident = float("inf") if op == "min" else float("-inf")
+    ext = torch.cat([vec, torch.full((1, vec.shape[1]), ident,
+                                     dtype=vec.dtype, device=vec.device)])
+    rows = ext[ell.long().clamp_(max=vec.shape[0])]  # [R, width, B]
+    return rows.amin(dim=1) if op == "min" else rows.amax(dim=1)
+
+
+def _segment_minmax_gathered(tp: TilePlan, gathered: torch.Tensor,
+                             num_segments: int, op: str) -> torch.Tensor:
+    """Masked segment min/max over pre-gathered rows ``[Mpad, B]`` in plan
+    layout (``scatter_reduce`` seeded with the identity)."""
+    sid = tp.seg_tiles.reshape(-1)
+    valid = sid >= 0
+    fill = float("inf") if op == "min" else float("-inf")
+    masked = torch.where(valid[:, None], gathered,
+                         torch.full((), fill, dtype=gathered.dtype,
+                                    device=gathered.device))
+    seg = torch.where(valid, sid, num_segments)
+    return MONOIDS[op].torch_segment()(masked, seg, num_segments + 1)[:num_segments]
+
+
+def _minmax_pass1(plan: DBIndexPlan, values: torch.Tensor, op: str):
+    """Block partials for an idempotent monoid: ELL fast path when the plan
+    carries one, else the masked segment reduce over the tile layout
+    (sized by block_capacity — static under streamed updates)."""
+    if plan.p1_ell is not None:
+        return _ell_reduce(plan.p1_ell, values, op)
+    gathered = values[plan.pass1.gather_padded.long()]
+    return _segment_minmax_gathered(plan.pass1, gathered,
+                                    plan.block_capacity, op)
+
+
+def _minmax_pass2(plan: DBIndexPlan, t: torch.Tensor, op: str):
+    if plan.p2_ell is not None:
+        return _ell_reduce(plan.p2_ell, t, op)
+    gathered = t[plan.pass2.gather_padded.long()]
+    return _segment_minmax_gathered(plan.pass2, gathered, plan.n, op)
+
+
+#: distinct (plan shape, aggregates, values shape, device) signatures the
+#: executor has run — the port's analogue of the reference's jit cache
+#: entries (see :func:`repro_torch.core.api.recompile_count`)
+_SIGNATURES: set = set()
+
+
+def signature_count() -> int:
+    """Distinct plan shape signatures seen by the fused query executor."""
+    return len(_SIGNATURES)
+
+
+def _query_dbindex_multi_channels(plan: DBIndexPlan, values: torch.Tensor,
+                                  aggs: tuple):
+    """Channel core of :func:`query_dbindex_multi` over a ``[n, B]`` float32
+    column batch: returns the deduped monoid channels, each ``[n, B]``.
+
+    Every sum channel of every batch column rides one K1 launch per pass:
+    pass 1 stacks the value/square columns (the count channel reads the
+    host-exact ``block_sizes`` and skips pass 1), pass 2 stacks the
+    ``[block_capacity, C·B]`` partial matrix.  K1 sums each column in plan
+    row order whatever the column count, so a batch column equals the
+    unbatched result bit for bit."""
+    _SIGNATURES.add((plan.shape_signature(), aggs, tuple(values.shape),
+                     str(plan.device)))
+    pack = pack_channels(aggs)
+    b = values.shape[1]
+    sum_cols = pack.channels_of("sum")
+    minmax_cols = [
+        (ci, m, s) for ci, (m, s) in enumerate(pack.channels) if m != "sum"
+    ]
+    squares = None
+
+    def source(src: str) -> torch.Tensor:
+        nonlocal squares
+        if src == "value":
+            return values
+        if squares is None:
+            squares = values * values
+        return squares
+
+    # ---- pass 1: one launch over the stacked value/square columns ------ #
+    t_cols = {}
+    gathered_cols = [ci for ci in sum_cols if pack.channels[ci][1] != "ones"]
+    if gathered_cols:
+        mat = torch.cat([source(pack.channels[ci][1]) for ci in gathered_cols],
+                        dim=1)
+        t = segment_sum(plan.pass1, mat)
+        for j, ci in enumerate(gathered_cols):
+            t_cols[ci] = t[:, j * b:(j + 1) * b]
+    for ci in sum_cols:
+        if pack.channels[ci][1] == "ones":
+            # block cardinalities are host-exact plan metadata
+            t_cols[ci] = plan.block_sizes[:, None].expand(-1, b)
+    for ci, mname, src in minmax_cols:
+        t_cols[ci] = _minmax_pass1(plan, source(src), mname)
+
+    # ---- pass 2: one launch over the stacked sum-channel matrix; min/max
+    # ride the dense ELL layout (idempotent, order-insensitive) ----------- #
+    outs = {}
+    if sum_cols:
+        t_mat = torch.cat([t_cols[ci] for ci in sum_cols], dim=1)
+        reduced = segment_sum(plan.pass2, t_mat)
+        for j, ci in enumerate(sum_cols):
+            outs[ci] = reduced[:, j * b:(j + 1) * b]
+    for ci, mname, _ in minmax_cols:
+        outs[ci] = _minmax_pass2(plan, t_cols[ci], mname)
+    return tuple(outs[ci] for ci in range(len(pack.channels)))
+
+
+def _as_values(values, dev: torch.device) -> torch.Tensor:
+    """Attribute values as float32 on ``dev`` (the reference casts before
+    every reduce; the generators emit float64)."""
+    if isinstance(values, torch.Tensor):
+        return values.to(device=dev, dtype=torch.float32)
+    return torch.from_numpy(np.asarray(values, np.float32)).to(dev)
+
+
+def query_dbindex_multi(plan: DBIndexPlan, values, aggs: tuple):
+    """Fused multi-aggregate DBIndex query over ``values`` ``[n]`` — or a
+    ``[B, n]`` batch, folded into the channel columns so each pass is still
+    one K1 launch.
+
+    ``aggs`` names aggregates sharing one window; the channels are deduped
+    (``sum``/``avg`` share the value channel, ``count``/``avg`` the
+    cardinality channel, registered derived aggregates ride extra
+    ``square`` channels).  Finalizers run eagerly on the channel results.
+    Returns one float32 tensor per aggregate, in ``aggs`` order.
+    """
+    aggs = tuple(aggs)
+    v = _as_values(values, plan.device)
+    batched = v.dim() == 2
+    cols = v.t().contiguous() if batched else v[:, None]
+    chans = _query_dbindex_multi_channels(plan, cols, aggs)
+    chans = tuple(c.t() if batched else c[:, 0] for c in chans)
+    pack = pack_channels(aggs)
+    return tuple(pack.finalize(i, chans, xp=TORCH_XP) for i in range(len(aggs)))
+
+
+def query_dbindex(plan: DBIndexPlan, values, agg: str = "sum"):
+    """values: [n] vertex attribute -> [n] window aggregates (one aggregate
+    through the fused executor)."""
+    return query_dbindex_multi(plan, values, (agg,))[0]

@@ -1,0 +1,12 @@
+"""Hand-written CUDA kernels for the data planes (sources in ``csrc/``).
+
+* ``segment_reduce`` — K1, fused gather + tiled segment sum: DBIndex pass
+  1 and pass 2 of every sum/count/avg query.
+* ``bitset_expand``  — K2, one BFS hop over packed bitsets: the
+  affected-owner BFS of streamed updates.
+
+Each kernel module holds the wrapper (launch count, input checks) and a
+plain PyTorch version of the same function, which CPU tensors take and
+which is the kernel's oracle; ``build.py`` compiles the sources with
+``nvcc`` at first use.
+"""

@@ -1,0 +1,48 @@
+"""The port stands alone: importing it loads no JAX, no Triton and nothing
+of the reference package."""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+PKG = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+
+_PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "triton", "repro"))
+print(len(names), bad)
+"""
+
+
+def test_import_loads_no_jax_triton_or_reference():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], capture_output=True, text=True,
+        timeout=120, cwd=PKG.parents[1],
+        env={**os.environ, "PYTHONPATH": str(PKG.parent)},
+    )
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.strip().split(" ", 1)
+    assert int(count) >= 20  # every module of the package was imported
+    assert bad == "[]"
+
+
+def test_no_source_imports_jax_or_reference():
+    offenders = [
+        f"{path.relative_to(PKG)}:{i}"
+        for path in PKG.rglob("*.py")
+        for i, line in enumerate(path.read_text().splitlines(), 1)
+        if "import jax" in line or "from repro." in line
+        or "import repro." in line or "from repro import" in line
+    ]
+    assert offenders == []
