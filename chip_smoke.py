@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one GPU and check it.
+"""Drive the PyTorch/CUDA port's paths on one GPU and check them.
 
-    python3 chip_smoke.py            # full width: ER n=100k, degree 10, KHop(2)
+    python3 chip_smoke.py    # full width: ER n=100k, degree 10, KHop(2);
+                             # qwen3-0.6b serving; the Criteo-shaped FM
 
 Phases, one JSON object per line:
 
@@ -25,8 +26,26 @@ Phases, one JSON object per line:
    after.
 6. ``profile`` — one more ``update()`` and ``run()`` under ``torch.profiler``:
    device time by kernel and the device's idle share.
-7. ``kernels`` — one line per the repo's reporting contract; then the card
-   line from ``nvidia-smi``; then the ``{"ok": true, ...}`` line.
+7. ``kernel:flash_attention`` — K3 against ``flash_torch`` on unit-normal
+   bf16 q/k/v at the serve prefill's shape (B 8, Hq 16, Hkv 8, S 2048,
+   D 64) and at S = 32,768 (B 1), plus one float32 case; bitwise across two
+   launches; timed beside the plain version, ``scaled_dot_product_attention``
+   and the bound (bytes of q, k, v, o; causal FLOPs at the bf16 peak).
+8. ``kernel:fm_interaction`` — K4 against its plain version at B = 512 and
+   262,144 (F 39, K 10); bitwise across two launches; timed likewise.
+9. ``serve_lm`` — qwen3-0.6b at full width (28 layers, d 1024, vocab
+   151,936, random seeded weights): ``ServeEngine.generate`` on 8 requests
+   of 2048 tokens, 32 new each, twice (bitwise equal); K3's count reset
+   just before the first and read just after (28, one per layer); the
+   kernel prefill's logits against the plain prefill's (within 0.06 +
+   0.05 |logit|, top-1 equal where the margin is clear); prefill and decode
+   timed and profiled (device time by kernel, idle share).
+10. ``serve_fm`` — the FM at full width (80.31 M rows): ``forward`` with the
+    kernel on 512 and 262,144 id rows over the whole int32 range; K4's count
+    reset just before and read just after (one per forward); each result
+    against the plain forward, a small batch against float64 NumPy.
+11. ``kernels`` — one line per the repo's reporting contract; then the card
+    line from ``nvidia-smi``; then the ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero; without CUDA it
 exits non-zero before printing any result.
@@ -48,6 +67,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 AGGS = ("sum", "count", "avg", "min", "max")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 # normal float32 values: kernel and plain version add in different orders,
 # and the rounding of any order of a segment's adds is bounded by a multiple
 # of the sum of its terms' magnitudes, so |kernel - plain| <= TOL * sum|x|
@@ -89,9 +109,11 @@ def nbytes(*ts) -> int:
     return sum(int(t.numel() * t.element_size()) for t in ts)
 
 
-def bound_ms(bytes_moved: int, ops: int) -> tuple:
+def bound_ms(bytes_moved: int, ops: int, peak: float = F32_OPS_PER_S) -> tuple:
+    """(least ms, what bounds it): the larger of the bytes over the memory
+    rate and the operations over ``peak`` (operations per second)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -319,41 +341,18 @@ def make_batch(g, args, rng):
 
 
 def profile_phase(sess, state, args, rng, dev, unprofiled_ms):
-    """One more ``update()`` and ``run()`` under ``torch.profiler``: the
-    device-side events (kernels and copies; the aten rows that carry their
-    kernels' time again are left out) against the unprofiled median wall
-    time of the same call, which gives the device's idle share.  The
-    profiler's own host overhead is inside ``wall_ms_profiled`` only."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    """One more ``update()`` and ``run()`` under ``torch.profiler`` (see
+    :func:`device_profile`); the profiled ``run()`` is checked against the
+    host index."""
     out = {}
-    for what in ("update", "run"):
-        batch = make_batch(sess.graph, args, rng) if what == "update" else None
-        t = time.perf_counter()
-        with profile(activities=acts) as prof:
-            res = sess.update(batch) if what == "update" else sess.run()
-            torch.cuda.synchronize(dev)
-        wall_ms = (time.perf_counter() - t) * 1e3
-        if what == "run":
-            check_results(res, host_expect(state.index, sess.graph.attrs["val"]),
-                          "profiled run vs host index")
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total > 0]
-        device_ms = sum(e.self_device_time_total for e in events) / 1e3
-        top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-        out[what] = {
-            "wall_ms_profiled": wall_ms,
-            "wall_ms_unprofiled_median": unprofiled_ms[what],
-            "device_ms": device_ms if events else "not measured",
-            "device_idle_share": (max(0.0, 1 - device_ms / unprofiled_ms[what])
-                                  if events else "not measured"),
-            "top_device_events": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
-                                  for e in top],
-        }
+    batch = make_batch(sess.graph, args, rng)
+    out["update"] = device_profile(lambda: sess.update(batch), dev,
+                                   unprofiled_ms["update"])
+    res = []
+    out["run"] = device_profile(lambda: res.append(sess.run()), dev,
+                                unprofiled_ms["run"])
+    check_results(res[0], host_expect(state.index, sess.graph.attrs["val"]),
+                  "profiled run vs host index")
     return out
 
 
@@ -438,6 +437,343 @@ def drive_main_path(sess, state, args, rng):
     }
 
 
+# ---------------------------------------------------------------------- #
+# K3 against flash_torch.  float32: within 1e-4 (the same float32
+# algorithm, summed in another order).  bf16: the kernel rounds p to bf16
+# before the PV product, as the TPU kernel does, and flash_torch keeps p in
+# float32; rounding each p by at most 2**-8 of itself moves an output by at
+# most 2**-8 of the attention-weighted mean of |v| (flash_torch on |v|);
+# both then round their float32 result to bf16, at most one step (2**-7 of
+# the value) apart; and 1e-4 for the float32 sums' order, as in float32
+K3_TOL = {"p_round": 2.0**-8, "out_round": 2.0**-7, "f32": 1e-4}
+# (name, B, Hq, Hkv, S, D): the serve phase's prefill, and the sequence
+# length of LM_SHAPES["prefill_32k"] at batch 1 instead of 32
+K3_SHAPES = (("serve_prefill", 8, 16, 8, 2048, 64),
+             ("prefill_32k_b1", 1, 16, 8, 32768, 64))
+# serve_lm: (requests, prompt tokens, new tokens each)
+LM_SERVE = (8, 2048, 32)
+# kernel prefill against plain prefill, last-token logits: the repo's bf16
+# logits tolerance (tests/test_arch_smoke.py), as (atol, rtol)
+LM_LOGITS_TOL = (0.06, 0.05)
+
+
+def _k3_close(got, want, vbar=None):
+    """K3's tolerance: 1e-4 for float32; for bf16 (``vbar``, the
+    attention-weighted mean of |v| per output) the rounding bound above."""
+    diff = (got.float() - want.float()).abs()
+    tol = K3_TOL["f32"]
+    if vbar is not None:
+        tol = tol + K3_TOL["p_round"] * vbar + K3_TOL["out_round"] * want.float().abs()
+    return bool((diff <= tol).all()), float(diff.max())
+
+
+def kernel_flash_attention(dev, reps, seed):
+    """K3 against its plain version (``flash_torch``) on unit-normal q/k/v
+    at the serve prefill's shape and at S = 32,768 (bf16), plus one
+    float32 case; bitwise across two launches; timed beside the plain
+    version, ``scaled_dot_product_attention`` and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def qkv(b, hq, hkv, s, d, dtype):
+        return [torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
+                for h in (hq, hkv, hkv)]
+
+    per_shape, max_err = {}, 0.0
+    for name, b, hq, hkv, s, d in K3_SHAPES:
+        q, k, v = qkv(b, hq, hkv, s, d, torch.bfloat16)
+        k1 = flash_attention(q, k, v)
+        k2 = flash_attention(q, k, v)
+        plain = flash_torch(q, k, v)
+        torch.cuda.synchronize(dev)
+        check(torch.equal(k1, k2), f"K3 {name}: two launches differ")
+        check(bool(torch.isfinite(k1).all()), f"K3 {name}: non-finite output")
+        vbar = flash_torch(q.float(), k.float(), v.float().abs())
+        ok, err = _k3_close(k1, plain, vbar)
+        check(ok, f"K3 {name}: off from flash_torch by {err}")
+        max_err = max(max_err, err)
+        try:
+            def lib():
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=True)
+            lib_out = lib()
+        except TypeError:  # a torch without enable_gqa: repeat k, v untimed
+            kr, vr = (t.repeat_interleave(hq // hkv, dim=1) for t in (k, v))
+
+            def lib():
+                return F.scaled_dot_product_attention(q, kr, vr, is_causal=True)
+            lib_out = lib()
+        lib_err = float((lib_out.float() - plain.float()).abs().max())
+        slow = max(2, reps // 5) if s > 4096 else reps
+        b_ms, by = bound_ms(nbytes(q, k, v, k1), 2 * b * hq * d * s * (s + 1),
+                            BF16_OPS_PER_S)
+        per_shape[name] = {
+            "b": b, "hq": hq, "hkv": hkv, "s": s, "d": d, "dtype": "bfloat16",
+            "max_abs_err": err, "library_max_abs_err": lib_err,
+            "ms": time_ms(lambda: flash_attention(q, k, v), dev, slow),
+            "plain_ms": time_ms(lambda: flash_torch(q, k, v), dev, max(2, slow // 4)),
+            "library_ms": time_ms(lib, dev, slow),
+            "bound_ms": b_ms, "bound_by": by,
+        }
+        del q, k, v, k1, k2, plain, vbar, lib_out
+    q, k, v = qkv(2, 4, 2, 1000, 128, torch.float32)
+    ok, f32_err = _k3_close(flash_attention(q, k, v), flash_torch(q, k, v))
+    check(ok, f"K3 float32: off from flash_torch by {f32_err}")
+    return per_shape, max_err, f32_err
+
+
+def kernel_fm_interaction(dev, reps, seed):
+    """K4 against its plain version at RECSYS_SHAPES serve_p99 and
+    serve_bulk (F = 39, K = 10, float32): within 1e-5 of each row's sum of
+    |terms|, bitwise across two launches; timed beside the plain version
+    and the bound (bytes: emb read once, the output written once)."""
+    import torch
+
+    from repro_torch.configs.registry import RECSYS_SHAPES
+    from repro_torch.kernels.fm_interaction.fm_interaction import (
+        fm_interaction,
+        fm_interaction_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    per_shape, max_err = {}, 0.0
+    for name in ("serve_p99", "serve_bulk"):
+        b = RECSYS_SHAPES[name].dims["batch"]
+        emb = torch.randn((b, 39, 10), generator=gen, device=dev)
+        k1, k2 = fm_interaction(emb), fm_interaction(emb)
+        plain = fm_interaction_plain(emb)
+        torch.cuda.synchronize(dev)
+        check(torch.equal(k1, k2), f"K4 {name}: two launches differ")
+        ok, err = fm_close(k1, plain, emb)
+        check(ok, f"K4 {name}: off from its plain version by {err}")
+        max_err = max(max_err, err)
+        b_ms, by = bound_ms(nbytes(emb, k1), 3 * emb.numel())
+        per_shape[name] = {
+            "b": b, "f": 39, "k": 10, "max_abs_err": err,
+            "ms": time_ms(lambda: fm_interaction(emb), dev, reps),
+            "plain_ms": time_ms(lambda: fm_interaction_plain(emb), dev, reps),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": by,
+        }
+    return per_shape, max_err
+
+
+def fm_close(got, want, emb):
+    """K4's tolerance: |got - want| <= 1e-5 * 0.5 * sum_k((sum_f |e|)^2 +
+    sum_f e^2), the magnitude of the row's terms, which bounds the
+    rounding of any order of its float32 sums."""
+    mass = 0.5 * (emb.abs().sum(1).square() + emb.square().sum(1)).sum(-1)
+    diff = (got - want).abs()
+    return bool((diff <= TOL * mass).all()), float(diff.max())
+
+
+def device_profile(fn, dev, unprofiled_ms):
+    """Run ``fn`` once under ``torch.profiler``: the device-side events
+    (kernels and copies; the aten rows that carry their kernels' time again
+    are left out) against ``unprofiled_ms``, the unprofiled median wall time
+    of the same call, which gives the device's idle share.  The profiler's
+    own host overhead is inside ``wall_ms_profiled`` only."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(dev)
+    wall_ms_profiled = (time.perf_counter() - t) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    return {
+        "wall_ms_profiled": wall_ms_profiled,
+        "wall_ms_unprofiled_median": unprofiled_ms,
+        "device_ms": device_ms if events else "not measured",
+        "device_idle_share": (max(0.0, 1 - device_ms / unprofiled_ms)
+                              if events else "not measured"),
+        "top_device_events": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
+                              for e in top],
+    }
+
+
+def wall_ms(fn, dev, reps: int):
+    """Median host wall milliseconds of ``fn()`` ending in a synchronize."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        out.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(out)
+
+
+def serve_lm(args, dev):
+    """qwen3-0.6b at full width from a seeded generator: ``ServeEngine``
+    serves 8 requests of 2048 random tokens, 32 new tokens each.  K3's
+    count is reset just before the first ``generate`` and read just
+    after; the kernel prefill is then held against the plain one."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = get_arch("qwen3-0.6b").model_cfg
+    b, plen, new = LM_SERVE
+    t = time.perf_counter()
+    params = T.init(torch.Generator(device=dev).manual_seed(args.seed), cfg)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t
+    prompts = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab, (b, plen)).astype(np.int32)
+    reqs = [Request(rid=i, prompt=prompts[i], max_new=new) for i in range(b)]
+    eng = ServeEngine(params, cfg, T, max_seq=plen + new, slots=b)
+
+    flash_attention.launches = 0
+    t = time.perf_counter()
+    out = eng.generate(reqs)
+    gen_s = time.perf_counter() - t
+    launches = flash_attention.launches
+    check(launches == cfg.n_layers,
+          f"K3 launched {launches} times in one generate, not {cfg.n_layers}")
+    t = time.perf_counter()
+    again = eng.generate(reqs)
+    gen2_s = time.perf_counter() - t
+    toks = np.stack([out[i] for i in range(b)])
+    check(toks.shape == (b, new), f"generate returned {toks.shape}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), "token outside the vocabulary")
+    check(all(np.array_equal(out[i], again[i]) for i in range(b)),
+          "two generate calls differ")
+
+    tok_t = torch.from_numpy(prompts).to(dev)
+    kv, logits = T.prefill(params, tok_t, cfg)
+    _, plain = T.prefill(params, tok_t, cfg, attn_backend="flash_torch")
+    check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+    check(logits.argmax(-1).tolist() == toks[:, 0].tolist(),
+          "generate's first token is not the prefill's argmax")
+    atol, rtol = LM_LOGITS_TOL
+    diff = (logits - plain).abs()
+    delta = float(diff.max())
+    check(bool((diff <= atol + rtol * plain.abs()).all()),
+          f"kernel prefill logits off from the plain prefill's by {delta}")
+    # top-1 must agree on every row whose top-2 margin exceeds what the
+    # tolerance lets each of the two logits move
+    top2 = plain.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    decided = margin > 2 * (atol + rtol * top2[:, 0].abs())
+    agree = logits.argmax(-1) == plain.argmax(-1)
+    check(bool(agree[decided].all()),
+          "kernel and plain prefill disagree on a row with a clear top-1")
+
+    prefill_ms = wall_ms(lambda: T.prefill(params, tok_t, cfg), dev, 3)
+    kv = {k: torch.nn.functional.pad(v, (0, 0, 0, new)) for k, v in kv.items()}
+    nxt = logits.argmax(-1)
+    steps = min(8, new - 1)
+
+    def decode_steps():
+        for i in range(steps):
+            T.decode_step(params, nxt, kv, plen + i, cfg)
+
+    decode_ms = wall_ms(decode_steps, dev, 3) / steps
+    return {
+        "model": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.head_dim,
+        "vocab": cfg.vocab, "params": cfg.n_params(), "init_s": init_s,
+        "batch": b, "prompt": plen, "new_tokens": new,
+        "generate_s": gen_s, "generate_s_second": gen2_s,
+        "generate_tokens_per_s": b * new / gen2_s,
+        "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+        "decode_tokens_per_s": b / decode_ms * 1e3,
+        "k3_launches_per_prefill": launches,
+        "logits_max_abs_delta_vs_plain": delta,
+        "rows_with_clear_top1": int(decided.sum()), "top1_agree_rows": int(agree.sum()),
+        "profile_prefill": device_profile(lambda: T.prefill(params, tok_t, cfg),
+                                          dev, prefill_ms),
+        "profile_decode_step": device_profile(
+            lambda: T.decode_step(params, nxt, kv, plen, cfg), dev, decode_ms),
+        "first_tokens": toks[:2, :8].tolist(),
+    }, launches
+
+
+def serve_fm(args, dev):
+    """The FM at full width (80.31 M rows) from a seeded generator:
+    ``forward`` on 512 and 262,144 examples of ids drawn over the whole
+    int32 range.  K4's count is reset just before the two forwards and read
+    just after; each result is held against the same forward with the FM
+    term from the plain version, and the row hash and a small batch against
+    NumPy."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import RECSYS_SHAPES, get_arch
+    from repro_torch.kernels.fm_interaction.fm_interaction import fm_interaction
+    from repro_torch.kernels.fm_interaction.ref import fm_interaction_ref
+    from repro_torch.models import recsys as R
+
+    cfg = get_arch("fm").model_cfg
+    t = time.perf_counter()
+    params = R.init(torch.Generator(device=dev).manual_seed(args.seed), cfg)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t
+    rng = np.random.default_rng(args.seed)
+    xs = {name: rng.integers(-(2**31), 2**31, (RECSYS_SHAPES[name].dims["batch"],
+                                               cfg.n_fields)).astype(np.int32)
+          for name in ("serve_p99", "serve_bulk")}
+    xd = {name: torch.from_numpy(x).to(dev) for name, x in xs.items()}
+
+    fm_interaction.launches = 0
+    ys = {name: R.forward(params, x, cfg) for name, x in xd.items()}
+    torch.cuda.synchronize(dev)
+    launches = fm_interaction.launches
+    check(launches == len(xd), f"K4 launched {launches} times in {len(xd)} forwards")
+
+    out = {"model": cfg.name, "fields": cfg.n_fields, "embed_dim": cfg.embed_dim,
+           "rows": cfg.total_rows, "table_bytes": nbytes(params["emb"], params["w1"]),
+           "init_s": init_s, "k4_launches": launches, "per_shape": {}}
+    for name, x in xd.items():
+        y = ys[name]
+        check(y.shape == (x.shape[0],) and bool(torch.isfinite(y).all()),
+              f"serve_fm {name}: bad output")
+        rows = R._rows(cfg, x)
+        emb = params["emb"][rows]
+        plain = (params["bias"] + params["w1"][rows].sum(dim=-1)
+                 + fm_interaction_ref(emb))
+        ok, err = fm_close(y, plain, emb)
+        check(ok, f"serve_fm {name}: off from the plain forward by {err}")
+        ms = time_ms(lambda: R.forward(params, x, cfg), dev, args.reps)
+        out["per_shape"][name] = {
+            "batch": int(x.shape[0]), "ms": ms, "max_abs_err": err,
+            "examples_per_s": x.shape[0] / ms * 1e3,
+            "profile": device_profile(
+                lambda: R.forward(params, x, cfg), dev, ms),
+        }
+    # the repo's own means on a small input: the row hash as uint32 NumPy
+    # arithmetic and the score in float64 from the gathered rows
+    x = xs["serve_p99"][:64]
+    rows = (cfg.offsets[None, :].astype(np.uint64)
+            + x.astype(np.uint32).astype(np.uint64)
+            % np.asarray(cfg.table_sizes, np.uint64)[None, :]).astype(np.int64)
+    check(np.array_equal(R._rows(cfg, xd["serve_p99"][:64]).cpu().numpy(), rows),
+          "row hash differs from uint32 NumPy")
+    rows_d = torch.from_numpy(rows).to(dev)
+    e = params["emb"][rows_d].cpu().numpy().astype(np.float64)
+    lin = params["w1"][rows_d].cpu().numpy().astype(np.float64).sum(-1)
+    ref = lin + 0.5 * (e.sum(1) ** 2 - (e * e).sum(1)).sum(-1)
+    err64 = float(np.abs(ys["serve_p99"][:64].cpu().numpy() - ref).max())
+    check(err64 < 1e-6, f"serve_fm: off from float64 NumPy by {err64}")
+    out["max_abs_err_vs_float64"] = err64
+    return out, launches
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -501,6 +837,19 @@ def run(args, dev) -> None:
     launches = main["launches"]
     check(launches["segment_sum"] > 0, "the main path launched no K1")
     check(launches["bitset_expand"] > 0, "the main path launched no K2")
+    del sess, state, plan
+
+    k3, k3_err, k3_f32_err = kernel_flash_attention(dev, args.reps, args.seed)
+    emit({"phase": "kernel:flash_attention", "check": "ok", "max_abs_err": k3_err,
+          "float32_max_abs_err": k3_f32_err, "per_shape": k3})
+    k4, k4_err = kernel_fm_interaction(dev, args.reps, args.seed)
+    emit({"phase": "kernel:fm_interaction", "check": "ok", "max_abs_err": k4_err,
+          "per_shape": k4})
+    lm, launches["flash_attention"] = serve_lm(args, dev)
+    emit({"phase": "serve_lm", **lm})
+    fm, launches["fm_interaction"] = serve_fm(args, dev)
+    emit({"phase": "serve_fm", **fm})
+    k3_row, k4_row = k3["serve_prefill"], k4["serve_bulk"]
 
     rows = [
         {"name": "segment_sum", "route": "cuda",
@@ -515,6 +864,22 @@ def run(args, dev) -> None:
          "launches": launches["bitset_expand"], "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": k2["library_ms"], "check": "ok"},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:76",
+         "launches": launches["flash_attention"], "max_abs_err": k3_err,
+         "ms": k3_row["ms"], "plain_ms": k3_row["plain_ms"],
+         "bound_ms": k3_row["bound_ms"], "bound_by": k3_row["bound_by"],
+         "library_ms": k3_row["library_ms"], "check": "ok"},
+        {"name": "fm_interaction", "route": "cuda",
+         "source": "src/repro_torch/csrc/fm_interaction.cu",
+         "replaces": "src/repro/kernels/fm_interaction/fm_interaction.py:31",
+         "launches": launches["fm_interaction"], "max_abs_err": k4_err,
+         "ms": k4_row["ms"], "plain_ms": k4_row["plain_ms"],
+         "bound_ms": k4_row["bound_ms"], "bound_by": k4_row["bound_by"],
+         "library_ms": None,
+         "library": "none: no single PyTorch call computes the FM term",
+         "check": "ok"},
     ]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1,4 +1,4 @@
-"""Carry index and plan state across from the reference, as numpy arrays.
+"""Carry index, plan and model state across from the reference, as numpy arrays.
 
 The reference package's ``DBIndex`` and device ``DBIndexPlan`` flatten to
 plain arrays (``np.asarray`` of each field); these functions rebuild the
@@ -70,3 +70,35 @@ def dbindex_plan_from_arrays(arrays: Mapping, torch_device="cuda") -> DBIndexPla
         device=dev,
         **ell,
     )
+
+
+def transformer_params_from_arrays(tree: Mapping, cfg, torch_device="cuda"):
+    """The port's transformer params on ``torch_device`` from the
+    reference's ``init`` tree as numpy arrays (layers stacked ``[L, ...]``),
+    each cast to the dtype the port holds it in
+    (:func:`~repro_torch.models.transformer.port_dtype`)."""
+    from repro_torch.models.transformer import port_dtype
+
+    dev = resolve_device(torch_device)
+
+    def t(name, a):
+        return torch.from_numpy(np.array(a, np.float32)).to(dev, port_dtype(name, cfg))
+
+    stacked = tree["layers"]
+    out = {
+        "embed": t("embed", tree["embed"]),
+        "layers": [{k: t(k, a[i]) for k, a in stacked.items()}
+                   for i in range(cfg.n_layers)],
+        "ln_f": t("ln_f", tree["ln_f"]),
+    }
+    if "unembed" in tree:
+        out["unembed"] = t("unembed", tree["unembed"])
+    return out
+
+
+def fm_params_from_arrays(tree: Mapping, cfg, torch_device="cuda"):
+    """The port's FM params on ``torch_device`` from the reference's
+    ``init`` tree as numpy arrays."""
+    dev = resolve_device(torch_device)
+    return {k: torch.from_numpy(np.array(tree[k], np.float32)).to(dev, cfg.pdtype)
+            for k in ("emb", "w1", "bias")}

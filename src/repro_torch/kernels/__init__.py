@@ -4,6 +4,10 @@
   1 and pass 2 of every sum/count/avg query.
 * ``bitset_expand``  — K2, one BFS hop over packed bitsets: the
   affected-owner BFS of streamed updates.
+* ``flash_attention`` — K3, causal GQA flash attention forward: the dense
+  LM's prefill.
+* ``fm_interaction`` — K4, the FM second-order interaction: the FM
+  recsys model's forward.
 
 Each kernel module holds the wrapper (launch count, input checks) and a
 plain PyTorch version of the same function, which CPU tensors take and

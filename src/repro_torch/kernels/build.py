@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 #: every kernel source the port ships
-KERNELS = ("segment_sum", "bitset_expand")
+KERNELS = ("segment_sum", "bitset_expand", "flash_attention", "fm_interaction")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

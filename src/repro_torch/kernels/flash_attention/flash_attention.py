@@ -1,0 +1,85 @@
+"""Kernel K3: causal GQA flash attention, forward.
+
+The CUDA kernel is ``csrc/flash_attention.cu`` (its opening note says what
+it replaces and how it is designed).  :func:`flash_attention` launches it
+for CUDA tensors and takes :func:`flash_attention_plain` — the chunked
+streaming-softmax :func:`~repro_torch.kernels.flash_attention.ref.flash_torch`
+— only for tensors on the CPU.  The plain version is also the kernel's
+oracle on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build as _build
+from repro_torch.kernels.flash_attention.ref import flash_torch
+
+#: head sizes the kernel is compiled for
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _lib():
+    fn = _build.load("flash_attention").flash_attention_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       ctypes.c_float, _P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of :func:`flash_attention`."""
+    return flash_torch(q, k, v, causal=causal)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q: [B, Hq, S, D]; k, v: [B, Hkv, S, D] -> [B, Hq, S, D] in q's dtype.
+
+    Contiguous float32 or bfloat16 tensors of one dtype, Hq % Hkv == 0,
+    any S >= 1.  CPU tensors take :func:`flash_attention_plain`; CUDA
+    tensors launch the kernel (D in :data:`HEAD_DIMS`), and anything the
+    kernel does not take raises."""
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"q: expected float32 or bfloat16, got {q.dtype}")
+    _build.check_tensor(q, q.dtype, 4, "q")
+    _build.check_tensor(k, q.dtype, 4, "k", q.device)
+    _build.check_tensor(v, q.dtype, 4, "v", q.device)
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    if tuple(k.shape) != (b, hkv, s, d) or v.shape != k.shape:
+        raise ValueError(f"shapes disagree: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head size {d} not in {HEAD_DIMS}")
+    if b * hq > 65535:
+        raise ValueError(f"B * Hq = {b * hq} exceeds the grid's 65535 rows")
+    out = torch.empty_like(q)
+    if s == 0 or b == 0:
+        return out
+    fn = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 _DTYPE_CODE[q.dtype], b, hq, hkv, s, d, int(causal),
+                 d ** -0.5, stream)
+    _build.check(err, "flash_attention_fwd")
+    flash_attention.launches += 1
+    return out
+
+
+#: kernel launches so far (a plain count; callers may reset it to 0)
+flash_attention.launches = 0

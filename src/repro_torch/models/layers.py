@@ -1,0 +1,84 @@
+"""Shared layers (functional, plain tensors), the serving subset.
+
+Conventions, as in the reference:
+
+* params are nested dicts of tensors; init functions draw from a
+  :class:`torch.Generator` on the generator's device, in float32, and cast;
+* weights are ``[d_in, d_out]`` and used as ``x @ w``;
+* normalization runs in float32 and casts back; RoPE's cos and sin are
+  cast to the activations' dtype before the multiply.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int,
+               dtype=torch.float32, scale: Optional[float] = None):
+    scale = scale if scale is not None else d_in ** -0.5
+    w = torch.randn((d_in, d_out), generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return (w * scale).to(dtype)
+
+
+def embed_init(generator: torch.Generator, vocab: int, d: int,
+               dtype=torch.float32):
+    w = torch.randn((vocab, d), generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return (w * 0.02).to(dtype)
+
+
+def rmsnorm_init(d: int, dtype=torch.float32, device=None):
+    return torch.ones((d,), dtype=dtype, device=device)
+
+
+def rmsnorm(x, gamma, eps: float = 1e-6):
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * gamma.float()).to(x.dtype)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def rope_freqs(head_dim: int, max_seq: int, theta: float = 10000.0,
+               device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+    inv = 1.0 / (theta ** (exps / head_dim))
+    t = torch.arange(max_seq, dtype=torch.float32, device=device)
+    ang = torch.outer(t, inv)  # [S, D/2]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin, positions=None):
+    """x: [..., S, D]; cos/sin: [S_max, D/2] (gathered at ``positions`` if given)."""
+    if positions is not None:
+        cos = cos[positions]
+        sin = sin[positions]
+    x1, x2 = x.chunk(2, dim=-1)
+    shape = (1,) * (x.dim() - 2) + tuple(cos.shape)
+    cos = cos.reshape(shape).to(x.dtype)
+    sin = sin.reshape(shape).to(x.dtype)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def mlp_init(generator: torch.Generator, dims, dtype=torch.float32):
+    """Simple MLP: list of {w, b} for dims [d0, d1, ..., dn]."""
+    return [
+        {"w": dense_init(generator, a, b, dtype),
+         "b": torch.zeros((b,), dtype=dtype, device=generator.device)}
+        for a, b in zip(dims[:-1], dims[1:])
+    ]
+
+
+def mlp_apply(params, x, act=F.relu, final_act: bool = False):
+    for i, layer in enumerate(params):
+        x = x @ layer["w"] + layer["b"]
+        if i < len(params) - 1 or final_act:
+            x = act(x)
+    return x

@@ -59,3 +59,82 @@ def test_bitset_expand_kernel_matches_plain(cuda, n, deg, k):
              for dev in ("cpu", cuda)]
     ref, got = (ops.khop_reach(p, n, sources, k) for p in plans)
     assert torch.equal(got.cpu(), ref)
+
+
+def _fail(*_a, **_k):
+    raise AssertionError("a plain version was called for a CUDA tensor")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,hq,hkv,s,d", [(2, 4, 2, 256, 64), (1, 8, 8, 130, 32),
+                                          (2, 2, 1, 77, 16), (1, 4, 2, 1000, 128),
+                                          (3, 6, 3, 1, 64)])
+def test_flash_attention_kernel_matches_plain(cuda, monkeypatch, dtype, b, hq, hkv, s, d):
+    """K3 on the card, through the model's attention dispatch, against
+    flash_torch on the same inputs: float32 within 1e-4; bf16 within the
+    rounding the kernel adds (p rounded to bf16 moves an output by at most
+    2**-8 of the attention-weighted mean of |v|, and both round their
+    float32 result to bf16, one step of 2**-7 relative), plus 1e-4."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+    from repro_torch.kernels.flash_attention.ref import flash_torch
+    from repro_torch.models import attention as attn_mod
+
+    g = torch.Generator(device=cuda).manual_seed(s + d)
+    q, k, v = (torch.randn((b, h, s, d), generator=g, device=cuda).to(dtype)
+               for h in (hq, hkv, hkv))
+    want = flash_torch(q, k, v)
+    vbar = flash_torch(q.float(), k.float(), v.float().abs())
+    monkeypatch.setattr(fa_mod, "flash_attention_plain", _fail)
+    monkeypatch.setattr(fa_mod, "flash_torch", _fail)
+    monkeypatch.setattr(attn_mod, "flash_torch", _fail)
+    monkeypatch.setattr(attn_mod, "mha_ref", _fail)
+    before = fa_mod.flash_attention.launches
+    got = attn_mod.attention(q, k, v)
+    again = fa_mod.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_mod.flash_attention.launches == before + 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        tol = 2**-8 * vbar + 2**-7 * want.float().abs() + 1e-4
+        assert bool(((got.float() - want.float()).abs() <= tol).all())
+    with pytest.raises(NotImplementedError):
+        attn_mod.attention(q, k, v, local_window=8)
+
+
+@pytest.mark.parametrize("b,f,k", [(64, 39, 10), (100, 8, 16), (256, 5, 3), (262144, 39, 10)])
+def test_fm_interaction_kernel_matches_plain(cuda, monkeypatch, b, f, k):
+    """K4 against its plain version within 1e-5 of each row's sum of
+    |terms| (float32 sums in another order); bitwise across launches."""
+    from repro_torch.kernels.fm_interaction import fm_interaction as fm_mod
+    from repro_torch.kernels.fm_interaction.ops import fm_second_order
+
+    g = torch.Generator(device=cuda).manual_seed(b)
+    emb = torch.randn((b, f, k), generator=g, device=cuda)
+    want = fm_mod.fm_interaction_plain(emb)
+    mass = 0.5 * (emb.abs().sum(1).square() + emb.square().sum(1)).sum(-1)
+    monkeypatch.setattr(fm_mod, "fm_interaction_plain", _fail)
+    before = fm_mod.fm_interaction.launches
+    got = fm_second_order(emb)
+    again = fm_mod.fm_interaction(emb)
+    torch.cuda.synchronize()
+    assert fm_mod.fm_interaction.launches == before + 2
+    assert torch.equal(got, again)
+    assert bool(((got - want).abs() <= 1e-5 * mass).all())
+
+
+def test_lm_prefill_launches_k3_per_layer(cuda):
+    """The SMOKE qwen3 prefill on the card: one K3 launch per layer, and
+    logits close to the plain backend's (the repo's bf16 tolerance)."""
+    from repro_torch.configs.qwen3_0p6b import SMOKE
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.models import transformer as T
+
+    params = T.init(torch.Generator(device=cuda).manual_seed(0), SMOKE)
+    toks = torch.randint(0, SMOKE.vocab, (2, 300), device=cuda)
+    before = flash_attention.launches
+    _, logits = T.prefill(params, toks, SMOKE)
+    assert flash_attention.launches == before + SMOKE.n_layers
+    _, plain = T.prefill(params, toks, SMOKE, attn_backend="flash_torch")
+    torch.testing.assert_close(logits, plain, atol=0.06, rtol=0.05)
