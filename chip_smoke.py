@@ -8,7 +8,8 @@ Phases, one JSON object per line:
 
 1. ``env``     — the card (``nvidia-smi`` name and power limit), torch, CUDA.
 2. ``build``   — compiles every kernel of ``src/repro_torch/csrc`` with nvcc
-                 for sm_90a (one nvcc per source, all started together).
+                 for sm_90a (five libraries, one nvcc per source, all started
+                 together); registers and spills from each ptxas log.
 3. ``index``   — the graph, the host EMC DBIndex build and the device plan,
                  built by constructing the ``Session``.
 4. ``kernel:segment_sum`` / ``kernel:bitset_expand`` — each kernel against
@@ -26,17 +27,23 @@ Phases, one JSON object per line:
    after.
 6. ``profile`` — one more ``update()`` and ``run()`` under ``torch.profiler``:
    device time by kernel and the device's idle share.
-7. ``kernel:flash_attention`` — K3 against ``flash_torch`` on unit-normal
-   bf16 q/k/v at the serve prefill's shape (B 8, Hq 16, Hkv 8, S 2048,
-   D 64) and at S = 32,768 (B 1), plus one float32 case; bitwise across two
-   launches; timed beside the plain version, ``scaled_dot_product_attention``
-   and the bound (bytes of q, k, v, o; causal FLOPs at the bf16 peak).
+7. ``kernel:flash_attention`` — K3's tensor-core route (bf16, D 64;
+   ``csrc/flash_attention_sm90.cu``): no spills and setmaxnreg honoured in
+   its ptxas log, HGMMA in its SASS (``cuobjdump -sass``); then against
+   ``flash_torch`` on unit-normal q/k/v at the serve prefill's shape (B 8,
+   Hq 16, Hkv 8, S 2048, D 64), at S = 32,768 (B 1) and at the ragged
+   S = 2065, and the CUDA-core route on one float32 case; each checks the
+   route its launches took and is bitwise across two launches; timed
+   beside the plain version, ``scaled_dot_product_attention`` and the bound
+   (bytes of q, k, v, o; causal FLOPs at the bf16 peak, or the float32 peak
+   for float32), with TFLOP/s and the ratios to the library and the bound.
 8. ``kernel:fm_interaction`` — K4 against its plain version at B = 512 and
    262,144 (F 39, K 10); bitwise across two launches; timed likewise.
 9. ``serve_lm`` — qwen3-0.6b at full width (28 layers, d 1024, vocab
    151,936, random seeded weights): ``ServeEngine.generate`` on 8 requests
-   of 2048 tokens, 32 new each, twice (bitwise equal); K3's count reset
-   just before the first and read just after (28, one per layer); the
+   of 2048 tokens, 32 new each, twice (bitwise equal); K3's counts reset
+   just before the first and read just after (28, one per layer, all on
+   the tensor-core route); the
    kernel prefill's logits against the plain prefill's (within 0.06 +
    0.05 |logit|, top-1 equal where the margin is clear); prefill and decode
    timed and profiled (device time by kernel, idle share).
@@ -450,6 +457,10 @@ K3_TOL = {"p_round": 2.0**-8, "out_round": 2.0**-7, "f32": 1e-4}
 # length of LM_SHAPES["prefill_32k"] at batch 1 instead of 32
 K3_SHAPES = (("serve_prefill", 8, 16, 8, 2048, 64),
              ("prefill_32k_b1", 1, 16, 8, 32768, 64))
+# bf16 with S a multiple of neither the 64-row query tile nor the 128-key
+# tile; and the float32 case, which takes the CUDA-core route
+K3_RAGGED = ("ragged_2065", 2, 16, 8, 2065, 64)
+K3_F32 = ("float32", 2, 4, 2, 1000, 128)
 # serve_lm: (requests, prompt tokens, new tokens each)
 LM_SERVE = (8, 2048, 32)
 # kernel prefill against plain prefill, last-token logits: the repo's bf16
@@ -467,36 +478,65 @@ def _k3_close(got, want, vbar=None):
     return bool((diff <= tol).all()), float(diff.max())
 
 
+def k3_build_report():
+    """What the build of K3's tensor-core route says: registers and spills
+    per instance from the ptxas log (0 spill bytes, setmaxnreg honoured,
+    checked), and the count of HGMMA (wgmma) instructions in its SASS."""
+    from repro_torch.kernels import build
+
+    rep = build.ptxas_report("flash_attention_sm90")
+    check(len(rep["functions"]) == 2, "K3 sm90: the ptxas log does not list "
+          f"the D = 64 and 128 instances ({list(rep['functions'])})")
+    for fn, r in rep["functions"].items():
+        check(r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0,
+              f"K3 sm90: {fn} spills ({r})")
+    check(rep["setmaxnreg_ignored"] == 0, "K3 sm90: ptxas ignored setmaxnreg")
+    hgmma = build.sass("flash_attention_sm90").count("HGMMA")
+    check(hgmma > 0, "K3 sm90: no HGMMA in the SASS")
+    simt = build.ptxas_report("flash_attention")
+    return {"sm90": {**rep, "sass_hgmma": hgmma}, "simt": simt}
+
+
 def kernel_flash_attention(dev, reps, seed):
-    """K3 against its plain version (``flash_torch``) on unit-normal q/k/v
-    at the serve prefill's shape and at S = 32,768 (bf16), plus one
-    float32 case; bitwise across two launches; timed beside the plain
-    version, ``scaled_dot_product_attention`` and the bound."""
+    """K3 against its plain version (``flash_torch``) on unit-normal q/k/v:
+    the tensor-core route (bf16, D 64) at the serve prefill's shape, at
+    S = 32,768 and at a ragged S; the CUDA-core route at the float32 case.
+    Each case checks the route it took, is bitwise across two launches,
+    and is timed beside the plain version, ``scaled_dot_product_attention``
+    (same dtype) and the bound: bytes of q, k, v, o against causal FLOPs at
+    the bf16 tensor-core peak, or the float32 peak for float32."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        route,
+    )
     from repro_torch.kernels.flash_attention.ref import flash_torch
 
     gen = torch.Generator(device=dev).manual_seed(seed)
-
-    def qkv(b, hq, hkv, s, d, dtype):
-        return [torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
-                for h in (hq, hkv, hkv)]
-
+    cases = ([(c, torch.bfloat16) for c in K3_SHAPES + (K3_RAGGED,)]
+             + [(K3_F32, torch.float32)])
     per_shape, max_err = {}, 0.0
-    for name, b, hq, hkv, s, d in K3_SHAPES:
-        q, k, v = qkv(b, hq, hkv, s, d, torch.bfloat16)
+    for (name, b, hq, hkv, s, d), dtype in cases:
+        q, k, v = [torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
+                   for h in (hq, hkv, hkv)]
+        path = route(dtype, d)
+        before = flash_attention.launches_by_route[path]
         k1 = flash_attention(q, k, v)
         k2 = flash_attention(q, k, v)
+        check(flash_attention.launches_by_route[path] == before + 2,
+              f"K3 {name}: the two launches did not take the {path} route")
         plain = flash_torch(q, k, v)
         torch.cuda.synchronize(dev)
         check(torch.equal(k1, k2), f"K3 {name}: two launches differ")
         check(bool(torch.isfinite(k1).all()), f"K3 {name}: non-finite output")
-        vbar = flash_torch(q.float(), k.float(), v.float().abs())
+        vbar = (flash_torch(q.float(), k.float(), v.float().abs())
+                if dtype == torch.bfloat16 else None)
         ok, err = _k3_close(k1, plain, vbar)
         check(ok, f"K3 {name}: off from flash_torch by {err}")
-        max_err = max(max_err, err)
+        if dtype == torch.bfloat16:
+            max_err = max(max_err, err)
         try:
             def lib():
                 return F.scaled_dot_product_attention(q, k, v, is_causal=True,
@@ -510,21 +550,23 @@ def kernel_flash_attention(dev, reps, seed):
             lib_out = lib()
         lib_err = float((lib_out.float() - plain.float()).abs().max())
         slow = max(2, reps // 5) if s > 4096 else reps
-        b_ms, by = bound_ms(nbytes(q, k, v, k1), 2 * b * hq * d * s * (s + 1),
-                            BF16_OPS_PER_S)
+        flops = 2 * b * hq * d * s * (s + 1)
+        b_ms, by = bound_ms(nbytes(q, k, v, k1), flops,
+                            BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S)
+        ms = time_ms(lambda: flash_attention(q, k, v), dev, slow)
+        lib_ms = time_ms(lib, dev, slow)
         per_shape[name] = {
-            "b": b, "hq": hq, "hkv": hkv, "s": s, "d": d, "dtype": "bfloat16",
+            "b": b, "hq": hq, "hkv": hkv, "s": s, "d": d,
+            "dtype": str(dtype).replace("torch.", ""), "route": path,
             "max_abs_err": err, "library_max_abs_err": lib_err,
-            "ms": time_ms(lambda: flash_attention(q, k, v), dev, slow),
+            "ms": ms,
             "plain_ms": time_ms(lambda: flash_torch(q, k, v), dev, max(2, slow // 4)),
-            "library_ms": time_ms(lib, dev, slow),
-            "bound_ms": b_ms, "bound_by": by,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": by,
+            "tflops": flops / ms / 1e9, "ms_over_library": ms / lib_ms,
+            "ms_over_bound": ms / b_ms,
         }
         del q, k, v, k1, k2, plain, vbar, lib_out
-    q, k, v = qkv(2, 4, 2, 1000, 128, torch.float32)
-    ok, f32_err = _k3_close(flash_attention(q, k, v), flash_torch(q, k, v))
-    check(ok, f"K3 float32: off from flash_torch by {f32_err}")
-    return per_shape, max_err, f32_err
+    return per_shape, max_err
 
 
 def kernel_fm_interaction(dev, reps, seed):
@@ -571,12 +613,14 @@ def fm_close(got, want, emb):
     return bool((diff <= TOL * mass).all()), float(diff.max())
 
 
-def device_profile(fn, dev, unprofiled_ms):
+def device_profile(fn, dev, unprofiled_ms, match=()):
     """Run ``fn`` once under ``torch.profiler``: the device-side events
     (kernels and copies; the aten rows that carry their kernels' time again
     are left out) against ``unprofiled_ms``, the unprofiled median wall time
-    of the same call, which gives the device's idle share.  The profiler's
-    own host overhead is inside ``wall_ms_profiled`` only."""
+    of the same call, which gives the device's idle share; for each
+    substring in ``match``, the device time and share of the events whose
+    name holds it.  The profiler's own host overhead is inside
+    ``wall_ms_profiled`` only."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -589,8 +633,15 @@ def device_profile(fn, dev, unprofiled_ms):
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    matched = {}
+    for sub in match:
+        ms = sum(e.self_device_time_total for e in events if sub in e.key) / 1e3
+        matched[sub] = {"device_ms": ms, "launches": sum(e.count for e in events
+                                                         if sub in e.key),
+                        "share_of_device": ms / device_ms if events else "not measured"}
     return {
+        "matched": matched,
         "wall_ms_profiled": wall_ms_profiled,
         "wall_ms_unprofiled_median": unprofiled_ms,
         "device_ms": device_ms if events else "not measured",
@@ -639,12 +690,17 @@ def serve_lm(args, dev):
     eng = ServeEngine(params, cfg, T, max_seq=plen + new, slots=b)
 
     flash_attention.launches = 0
+    flash_attention.launches_by_route.update(sm90=0, simt=0)
     t = time.perf_counter()
     out = eng.generate(reqs)
     gen_s = time.perf_counter() - t
     launches = flash_attention.launches
+    by_route = dict(flash_attention.launches_by_route)
     check(launches == cfg.n_layers,
           f"K3 launched {launches} times in one generate, not {cfg.n_layers}")
+    check(by_route["sm90"] == cfg.n_layers,
+          f"K3's launches in one generate took the routes {by_route}, "
+          f"not {cfg.n_layers} x sm90")
     t = time.perf_counter()
     again = eng.generate(reqs)
     gen2_s = time.perf_counter() - t
@@ -693,11 +749,11 @@ def serve_lm(args, dev):
         "generate_tokens_per_s": b * new / gen2_s,
         "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
         "decode_tokens_per_s": b / decode_ms * 1e3,
-        "k3_launches_per_prefill": launches,
+        "k3_launches_per_prefill": launches, "k3_launches_by_route": by_route,
         "logits_max_abs_delta_vs_plain": delta,
         "rows_with_clear_top1": int(decided.sum()), "top1_agree_rows": int(agree.sum()),
         "profile_prefill": device_profile(lambda: T.prefill(params, tok_t, cfg),
-                                          dev, prefill_ms),
+                                          dev, prefill_ms, match=("flash_fwd",)),
         "profile_decode_step": device_profile(
             lambda: T.decode_step(params, nxt, kv, plen, cfg), dev, decode_ms),
         "first_tokens": toks[:2, :8].tolist(),
@@ -797,13 +853,9 @@ def run(args, dev) -> None:
 
     t = time.perf_counter()
     secs = build.build()
-    ptxas = {}
-    for name in secs:
-        log = build.library_path(name).with_suffix(".log")
-        ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
-                       if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t,
-          "per_kernel_s": secs, "ptxas": ptxas})
+          "per_kernel_s": secs,
+          "ptxas": {name: build.ptxas_report(name) for name in secs}})
 
     t = time.perf_counter()
     g = with_random_attrs(erdos_renyi(args.n, args.degree, directed=False,
@@ -839,9 +891,10 @@ def run(args, dev) -> None:
     check(launches["bitset_expand"] > 0, "the main path launched no K2")
     del sess, state, plan
 
-    k3, k3_err, k3_f32_err = kernel_flash_attention(dev, args.reps, args.seed)
+    k3_build = k3_build_report()
+    k3, k3_err = kernel_flash_attention(dev, args.reps, args.seed)
     emit({"phase": "kernel:flash_attention", "check": "ok", "max_abs_err": k3_err,
-          "float32_max_abs_err": k3_f32_err, "per_shape": k3})
+          "build": k3_build, "per_shape": k3})
     k4, k4_err = kernel_fm_interaction(dev, args.reps, args.seed)
     emit({"phase": "kernel:fm_interaction", "check": "ok", "max_abs_err": k4_err,
           "per_shape": k4})
@@ -865,7 +918,7 @@ def run(args, dev) -> None:
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": k2["library_ms"], "check": "ok"},
         {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:76",
          "launches": launches["flash_attention"], "max_abs_err": k3_err,
          "ms": k3_row["ms"], "plain_ms": k3_row["plain_ms"],

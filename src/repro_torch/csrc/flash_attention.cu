@@ -1,7 +1,13 @@
-// Causal GQA flash attention, forward (bf16 or float32 in, float32 sums).
+// Causal GQA flash attention, forward (bf16 or float32 in, float32 sums), on
+// the CUDA cores.
 //
 // Replaces the TPU kernel `flash_attention` in
-// src/repro/kernels/flash_attention/flash_attention.py (body `_flash_kernel`).
+// src/repro/kernels/flash_attention/flash_attention.py (body `_flash_kernel`)
+// for the calls the tensor-core kernel (flash_attention_sm90.cu) does not
+// take: float32 with any D (a float32 product on the tensor cores would be
+// TF32) and bf16 with D in {16, 32}.  bf16 with D in {64, 128}, the LM
+// prefill's route, goes to flash_attention_sm90.cu; the wrapper
+// (kernels/flash_attention/flash_attention.py) holds the table.
 //
 // q [B, Hq, S, D], k and v [B, Hkv, S, D] -> o [B, Hq, S, D] in q's type;
 // query head h reads kv head h / (Hq / Hkv).  As in the TPU kernel, scores
@@ -13,9 +19,10 @@
 // What bounds it on an H100: operations.  2 * B * Hq * D * S * (S + 1)
 // multiply-adds against S * D * (2 * Hq + 2 * Hkv) elements of traffic; at
 // S = 2048 the work is ~1000 operations per byte, far past the card's ridge.
-// This first design runs them on the CUDA cores in float32 (no wgmma, no
-// TMA yet), so it is well below the bf16 tensor-core bound; it is written to
-// be right and simple first:
+// This design runs them on the CUDA cores in float32 (no wgmma, no TMA),
+// so it is well below the bf16 tensor-core bound, and within the float32
+// peak of the CUDA cores for float32 calls; it is written to be right and
+// simple:
 //
 //   * one 256-thread block per (batch x query head, 64-row query tile); the
 //     grid walks the query tiles from the last (longest) row down, so the

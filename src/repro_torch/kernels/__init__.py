@@ -5,7 +5,9 @@
 * ``bitset_expand``  — K2, one BFS hop over packed bitsets: the
   affected-owner BFS of streamed updates.
 * ``flash_attention`` — K3, causal GQA flash attention forward: the dense
-  LM's prefill.
+  LM's prefill.  Two kernels, routed on (dtype, D): bf16 with D 64 or 128
+  on the tensor cores (``csrc/flash_attention_sm90.cu``), the rest on the
+  CUDA cores (``csrc/flash_attention.cu``).
 * ``fm_interaction`` — K4, the FM second-order interaction: the FM
   recsys model's forward.
 

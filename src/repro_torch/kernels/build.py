@@ -14,6 +14,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -28,7 +29,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 #: every kernel source the port ships
-KERNELS = ("segment_sum", "bitset_expand", "flash_attention", "fm_interaction")
+KERNELS = ("segment_sum", "bitset_expand", "flash_attention", "flash_attention_sm90",
+           "fm_interaction")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -92,6 +94,40 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def ptxas_report(name: str) -> dict:
+    """What ``ptxas -v`` said of kernel ``name`` in its build log:
+    ``{"functions": {mangled name: {registers, stack, spill_stores,
+    spill_loads}}, "setmaxnreg_ignored": count of ptxas's C7508 warnings}``."""
+    lines = library_path(name).with_suffix(".log").read_text().splitlines()
+    funcs: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for ln in lines:
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn = funcs.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and fn is not None:
+            fn.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                      spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn is not None:
+            fn["registers"] = int(m.group(1))
+    return {"functions": funcs,
+            "setmaxnreg_ignored": sum("setmaxnreg ignored" in ln for ln in lines)}
+
+
+def sass(name: str) -> str:
+    """The SASS of kernel ``name``'s library, by the toolkit's ``cuobjdump``."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(library_path(name))],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on {name}: {out.stderr.strip()}")
+    return out.stdout
 
 
 def check(err: int, what: str) -> None:

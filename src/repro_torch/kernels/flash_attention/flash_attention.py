@@ -1,11 +1,26 @@
 """Kernel K3: causal GQA flash attention, forward.
 
-The CUDA kernel is ``csrc/flash_attention.cu`` (its opening note says what
-it replaces and how it is designed).  :func:`flash_attention` launches it
-for CUDA tensors and takes :func:`flash_attention_plain` — the chunked
-streaming-softmax :func:`~repro_torch.kernels.flash_attention.ref.flash_torch`
-— only for tensors on the CPU.  The plain version is also the kernel's
-oracle on the card.
+Two CUDA kernels share the wrapper, chosen by a fixed table on (dtype, D):
+
+=============  ===============  ==========================================
+dtype          head size D      kernel (route)
+=============  ===============  ==========================================
+bfloat16       64, 128          ``csrc/flash_attention_sm90.cu`` (``sm90``):
+                                wgmma tensor cores, TMA, an mbarrier ring
+bfloat16       16, 32           ``csrc/flash_attention.cu`` (``simt``):
+                                CUDA cores
+float32        16, 32, 64, 128  ``csrc/flash_attention.cu`` (``simt``): a
+                                float32 product on the tensor cores would
+                                be TF32
+=============  ===============  ==========================================
+
+Each source's opening note says what it replaces and how it is designed.
+:func:`flash_attention` launches the table's kernel for CUDA tensors, with
+no retry on the other kernel, and takes :func:`flash_attention_plain` — the
+chunked streaming-softmax
+:func:`~repro_torch.kernels.flash_attention.ref.flash_torch` — only for
+tensors on the CPU.  The plain version is also the kernels' oracle on the
+card.
 """
 
 from __future__ import annotations
@@ -17,19 +32,35 @@ import torch
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.flash_attention.ref import flash_torch
 
-#: head sizes the kernel is compiled for
+#: head sizes the kernels are compiled for
 HEAD_DIMS = (16, 32, 64, 128)
+#: (dtype, head sizes) that take the tensor-core kernel; the rest take simt
+SM90 = (torch.bfloat16, (64, 128))
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _lib():
-    fn = _build.load("flash_attention").flash_attention_fwd
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel a CUDA call with this dtype and head size launches:
+    ``"sm90"`` or ``"simt"``.  Raises for what neither kernel takes."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"q: expected float32 or bfloat16, got {dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head size {d} not in {HEAD_DIMS}")
+    return "sm90" if dtype == SM90[0] and d in SM90[1] else "simt"
+
+
+def _lib(name: str):
+    if name == "sm90":
+        fn = _build.load("flash_attention_sm90").flash_attention_sm90_fwd
+        argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+    else:
+        fn = _build.load("flash_attention").flash_attention_fwd
+        argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       ctypes.c_float, _P]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -45,8 +76,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Contiguous float32 or bfloat16 tensors of one dtype, Hq % Hkv == 0,
     any S >= 1.  CPU tensors take :func:`flash_attention_plain`; CUDA
-    tensors launch the kernel (D in :data:`HEAD_DIMS`), and anything the
-    kernel does not take raises."""
+    tensors launch the kernel :func:`route` names (D in :data:`HEAD_DIMS`),
+    and anything it does not take raises."""
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"q: expected float32 or bfloat16, got {q.dtype}")
     _build.check_tensor(q, q.dtype, 4, "q")
@@ -63,23 +94,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head size {d} not in {HEAD_DIMS}")
+    name = route(q.dtype, d)
     if b * hq > 65535:
         raise ValueError(f"B * Hq = {b * hq} exceeds the grid's 65535 rows")
     out = torch.empty_like(q)
     if s == 0 or b == 0:
         return out
-    fn = _lib()
+    fn = _lib(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 _DTYPE_CODE[q.dtype], b, hq, hkv, s, d, int(causal),
-                 d ** -0.5, stream)
-    _build.check(err, "flash_attention_fwd")
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+        if name == "sm90":
+            err = fn(*ptrs, b, hq, hkv, s, d, int(causal), d ** -0.5, stream)
+        else:
+            err = fn(*ptrs, _DTYPE_CODE[q.dtype], b, hq, hkv, s, d, int(causal),
+                     d ** -0.5, stream)
+    _build.check(err, f"flash_attention ({name})")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[name] += 1
     return out
 
 
-#: kernel launches so far (a plain count; callers may reset it to 0)
+#: kernel launches so far, in all and by route (plain counts; callers may
+#: reset them to 0)
 flash_attention.launches = 0
+flash_attention.launches_by_route = {"sm90": 0, "simt": 0}

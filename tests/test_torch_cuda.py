@@ -65,16 +65,27 @@ def _fail(*_a, **_k):
     raise AssertionError("a plain version was called for a CUDA tensor")
 
 
+# (B, Hq, Hkv, S, D, causal): the first five from the first sweep; then the
+# tensor-core route's edges: S around the 64-row query tile and the
+# 128-key tile and one ragged long S, Hq / Hkv in {1, 2, 4, 8}, D 64 and 128;
+# and one non-causal shape
+K3_CASES = ([(2, 4, 2, 256, 64, True), (1, 8, 8, 130, 32, True), (2, 2, 1, 77, 16, True),
+             (1, 4, 2, 1000, 128, True), (3, 6, 3, 1, 64, True)]
+            + [(1, 2 * g, 2, s, d, True) for d in (64, 128) for g in (1, 2, 4, 8)
+               for s in (1, 63, 64, 65, 127, 128, 129, 2048 + 17)]
+            + [(2, 4, 2, 333, 64, False)])
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,hq,hkv,s,d", [(2, 4, 2, 256, 64), (1, 8, 8, 130, 32),
-                                          (2, 2, 1, 77, 16), (1, 4, 2, 1000, 128),
-                                          (3, 6, 3, 1, 64)])
-def test_flash_attention_kernel_matches_plain(cuda, monkeypatch, dtype, b, hq, hkv, s, d):
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal", K3_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, monkeypatch, dtype, b, hq, hkv, s, d,
+                                              causal):
     """K3 on the card, through the model's attention dispatch, against
     flash_torch on the same inputs: float32 within 1e-4; bf16 within the
     rounding the kernel adds (p rounded to bf16 moves an output by at most
     2**-8 of the attention-weighted mean of |v|, and both round their
-    float32 result to bf16, one step of 2**-7 relative), plus 1e-4."""
+    float32 result to bf16, one step of 2**-7 relative), plus 1e-4.  Both
+    launches take the route the table names (bf16 with D 64 or 128: sm90)."""
     from repro_torch.kernels.flash_attention import flash_attention as fa_mod
     from repro_torch.kernels.flash_attention.ref import flash_torch
     from repro_torch.models import attention as attn_mod
@@ -82,17 +93,20 @@ def test_flash_attention_kernel_matches_plain(cuda, monkeypatch, dtype, b, hq, h
     g = torch.Generator(device=cuda).manual_seed(s + d)
     q, k, v = (torch.randn((b, h, s, d), generator=g, device=cuda).to(dtype)
                for h in (hq, hkv, hkv))
-    want = flash_torch(q, k, v)
-    vbar = flash_torch(q.float(), k.float(), v.float().abs())
+    want = flash_torch(q, k, v, causal=causal)
+    vbar = flash_torch(q.float(), k.float(), v.float().abs(), causal=causal)
     monkeypatch.setattr(fa_mod, "flash_attention_plain", _fail)
     monkeypatch.setattr(fa_mod, "flash_torch", _fail)
     monkeypatch.setattr(attn_mod, "flash_torch", _fail)
     monkeypatch.setattr(attn_mod, "mha_ref", _fail)
+    path = "sm90" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
     before = fa_mod.flash_attention.launches
-    got = attn_mod.attention(q, k, v)
-    again = fa_mod.flash_attention(q, k, v)
+    before_route = fa_mod.flash_attention.launches_by_route[path]
+    got = attn_mod.attention(q, k, v, causal=causal)
+    again = fa_mod.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert fa_mod.flash_attention.launches == before + 2
+    assert fa_mod.flash_attention.launches_by_route[path] == before_route + 2
     assert got.dtype == dtype and torch.equal(got, again)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
@@ -128,13 +142,16 @@ def test_lm_prefill_launches_k3_per_layer(cuda):
     """The SMOKE qwen3 prefill on the card: one K3 launch per layer, and
     logits close to the plain backend's (the repo's bf16 tolerance)."""
     from repro_torch.configs.qwen3_0p6b import SMOKE
-    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention, route
     from repro_torch.models import transformer as T
 
     params = T.init(torch.Generator(device=cuda).manual_seed(0), SMOKE)
     toks = torch.randint(0, SMOKE.vocab, (2, 300), device=cuda)
+    path = route(SMOKE.cdtype, SMOKE.head_dim)
     before = flash_attention.launches
+    before_route = flash_attention.launches_by_route[path]
     _, logits = T.prefill(params, toks, SMOKE)
     assert flash_attention.launches == before + SMOKE.n_layers
+    assert flash_attention.launches_by_route[path] == before_route + SMOKE.n_layers
     _, plain = T.prefill(params, toks, SMOKE, attn_backend="flash_torch")
     torch.testing.assert_close(logits, plain, atol=0.06, rtol=0.05)

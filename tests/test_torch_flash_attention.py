@@ -154,3 +154,73 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take():
         flash_attention(q[:, :3].contiguous(), k, v)
     with pytest.raises(ValueError):
         flash_attention(q, k[:, :, :32].contiguous(), v)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
+    (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
+    (torch.float32, 16, "simt"), (torch.float32, 32, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+])
+def test_route_table(dtype, d, want):
+    """Which kernel a CUDA call launches: bf16 with D 64 or 128 takes the
+    tensor-core kernel, everything else the CUDA-core one."""
+    from repro_torch.kernels.flash_attention.flash_attention import route
+
+    assert route(dtype, d) == want
+
+
+@pytest.mark.parametrize("dtype,d,exc", [
+    (torch.float16, 64, TypeError), (torch.float64, 128, TypeError),
+    (torch.bfloat16, 96, ValueError), (torch.float32, 8, ValueError),
+    (torch.bfloat16, 256, ValueError),
+])
+def test_route_rejects_what_neither_kernel_takes(dtype, d, exc):
+    from repro_torch.kernels.flash_attention.flash_attention import route
+
+    with pytest.raises(exc):
+        route(dtype, d)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64), (torch.bfloat16, 128),
+                                     (torch.float32, 64), (torch.bfloat16, 16)])
+def test_cpu_tensors_reach_no_kernel(monkeypatch, dtype, d):
+    """A CPU call takes the plain version: neither library is loaded and
+    no route's count moves."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa_mod
+
+    def no_lib(*_a, **_k):
+        raise AssertionError("a kernel library was loaded for CPU tensors")
+
+    monkeypatch.setattr(fa_mod, "_lib", no_lib)
+    (q, k, v), _ = _qkv(1, 4, 2, 70, d, seed=d, dtype=str(dtype).split(".")[1])
+    before = (fa_mod.flash_attention.launches, dict(fa_mod.flash_attention.launches_by_route))
+    got = fa_mod.flash_attention(q, k, v)
+    assert torch.equal(got, flash_torch(q, k, v))
+    assert (fa_mod.flash_attention.launches,
+            fa_mod.flash_attention.launches_by_route) == before
+
+
+def test_ptxas_report_reads_registers_and_spills(monkeypatch, tmp_path):
+    """chip_smoke's spill check on the tensor-core route reads the build
+    log through ``build.ptxas_report``: each function's registers, stack
+    and spill bytes, and ptxas's count of ignored setmaxnreg."""
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    build.library_path("flash_attention_sm90").with_suffix(".log").write_text(
+        "ptxas info    : Compiling entry function '_Z3fooILi64EEv' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_Z3fooILi128EEv' for 'sm_90a'\n"
+        "ptxas warning : (C7508) setmaxnreg ignored; unable to determine register count at entry\n"
+        "    16 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers\n")
+    rep = build.ptxas_report("flash_attention_sm90")
+    assert rep == {
+        "functions": {
+            "_Z3fooILi64EEv": {"stack": 0, "spill_stores": 0, "spill_loads": 0,
+                               "registers": 168},
+            "_Z3fooILi128EEv": {"stack": 16, "spill_stores": 12, "spill_loads": 8,
+                                "registers": 168}},
+        "setmaxnreg_ignored": 1}
