@@ -9,24 +9,35 @@ Phases, one JSON object per line:
 1. ``env``     — the card (``nvidia-smi`` name and power limit), torch, CUDA.
 2. ``build``   — compiles every kernel of ``src/repro_torch/csrc`` with nvcc
                  for sm_90a (five libraries, one nvcc per source, all started
-                 together); registers and spills from each ptxas log.
+                 together); registers and spills from each ptxas log (none
+                 allowed in K1's).
 3. ``index``   — the graph, the host EMC DBIndex build and the device plan,
                  built by constructing the ``Session``.
 4. ``kernel:segment_sum`` / ``kernel:bitset_expand`` — each kernel against
    its plain PyTorch version on the card at the main path's shapes
    (bitwise on integer values; on normal float32 values within 1e-5 of
-   each segment's sum of |terms|; bitwise across two launches), and timed
-   with CUDA events:
-   kernel, plain version, one PyTorch library call, and the bound.
+   each segment's sum of |terms|, min/max bitwise; bitwise across two
+   launches), and timed with CUDA events around single calls (the median;
+   a short call's time holds the host's enqueue, which the card waits
+   for): kernel, plain version, one PyTorch library call, and the bound.
+   K1 in two forms: sum-only (C = 1 and 2, the shapes of earlier runs) and
+   the main path's (C = 3 and 4: sum, count, min, max), which also checks
+   NaN and the identity of empty segments and times the masked
+   ``scatter_reduce`` route K1 replaced.  A form's ``ms`` per ``run()`` is
+   its two passes' times added, as earlier runs timed K1; beside it, the
+   two passes called back to back as ``run()`` calls them.
 5. ``session`` — the port's main path: ``Session.run``, ``run_many`` (B=8)
    and a stream of ``UpdateBatch``es with phase 2 deferred, then one batch
    under the default ``StalenessPolicy`` (which reorganizes: a full EMC
    rebuild and a fresh plan upload), each result checked bit for bit
    against the session's own host index and against the set-evaluation
    oracle; the kernels' launch counts are reset just before and read just
-   after.
-6. ``profile`` — one more ``update()`` and ``run()`` under ``torch.profiler``:
-   device time by kernel and the device's idle share.
+   after (K1: 2 per ``run()`` and per ``run_many()``); ``run_many`` is also
+   timed warm, beside eight warm ``run()``s of its rows.
+6. ``profile`` — one more ``update()``, ``run()`` and ``run_many()`` under
+   ``torch.profiler``: device time by kernel and the device's idle share,
+   K1's device time by launch; the ``run()`` and the ``run_many()`` each
+   run K1 twice and no ``scatter`` kernel.
 7. ``kernel:flash_attention`` — K3's tensor-core route (bf16, D 64;
    ``csrc/flash_attention_sm90.cu``): no spills and setmaxnreg honoured in
    its ptxas log, HGMMA in its SASS (``cuobjdump -sass``); then against
@@ -125,77 +136,161 @@ def bound_ms(bytes_moved: int, ops: int, peak: float = F32_OPS_PER_S) -> tuple:
 
 
 # ---------------------------------------------------------------------- #
-def kernel_segment_sum(plan, vals, dev, reps, rng):
-    """K1 at the two passes of one ``run()`` for (sum, count, avg, min, max):
-    pass 1 sums the value column over the member rows, pass 2 the stacked
-    (sum, count) partials over the link rows."""
+def _k1_pass(name, tp, x, monoids, dev, reps, rng, nan_case):
+    """K1 at one pass: ``x`` ``[S, C]`` whose columns are ``monoids =
+    (n_sum, n_min, n_max)`` sum, min and max groups.  Checks (integer values
+    bitwise equal to the plain version, two launches bitwise equal, normal
+    values within TOL of each segment's sum of |terms| on the sum columns
+    and bitwise on the min/max columns, NaN kept by min/max as the CPU's
+    plain version keeps it, the identity in every empty segment) and times
+    it beside the plain version, its library yardsticks and its bound."""
     import torch
 
     from repro_torch.kernels.segment_reduce.segment_reduce import (
-        segment_sum_plain,
-        segment_sum_tiled,
+        segment_reduce_plain,
+        segment_reduce_tiled,
     )
 
+    n_sum, n_min, n_max = monoids
+    args = (tp.gather_padded, tp.seg_tiles, tp.m2out)
+    kw = dict(monoids=monoids, num_out_tiles=tp.num_out_tiles, tm=tp.tm, ts=tp.ts)
+
+    def kernel(v):
+        return segment_reduce_tiled(v, *args, **kw)
+
+    def plain(v, gather=tp.gather_padded, seg=tp.seg_tiles):
+        return segment_reduce_plain(v, gather, seg, monoids=monoids,
+                                    num_out_tiles=tp.num_out_tiles, ts=tp.ts)
+
+    k1, k2, p = kernel(x), kernel(x), plain(x)
+    torch.cuda.synchronize(dev)
+    check(torch.equal(k1, p), f"K1 {name}: integer values not bitwise equal")
+    check(torch.equal(k1, k2), f"K1 {name}: two launches differ")
+    xn = torch.from_numpy(rng.normal(size=tuple(x.shape)).astype("float32")).to(dev)
+    kn, pn = kernel(xn), plain(xn)
+    mass = segment_reduce_plain(xn.abs(), tp.gather_padded, tp.seg_tiles,
+                                monoids=(x.shape[1], 0, 0),
+                                num_out_tiles=tp.num_out_tiles, ts=tp.ts)
+    diff = (kn[:, :n_sum] - pn[:, :n_sum]).abs()
+    err = float(diff.max()) if n_sum else 0.0
+    check(bool((diff <= TOL * mass[:, :n_sum]).all()),
+          f"K1 {name}: normal values off by {err} (> {TOL} of sum|x|)")
+    check(torch.equal(kn[:, n_sum:], pn[:, n_sum:]),
+          f"K1 {name}: normal values' min/max not bitwise equal")
+    sid = tp.seg_tiles.reshape(-1)
+    ok = sid >= 0
+    empty = torch.bincount(sid[ok].long(), minlength=k1.shape[0]) == 0
+    ident = torch.tensor([0.0] * n_sum + [float("inf")] * n_min
+                         + [float("-inf")] * n_max, device=dev)
+    check(torch.equal(k1[empty], ident.expand(int(empty.sum()), x.shape[1])),
+          f"K1 {name}: an empty segment does not hold the identity")
+    if nan_case:
+        xq = x.clone()
+        xq[torch.from_numpy(rng.integers(0, x.shape[0], 64)).to(dev),
+           n_sum + torch.from_numpy(rng.integers(0, n_min + n_max, 64)).to(dev)] = float("nan")
+        want = plain(xq.cpu(), tp.gather_padded.cpu(), tp.seg_tiles.cpu())
+        got = kernel(xq).cpu()
+        check(bool(torch.isnan(want).any()), f"K1 {name}: the NaN case reached no segment")
+        check(torch.equal(torch.isnan(got), torch.isnan(want))
+              and torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0)),
+              f"K1 {name}: NaN not kept as the plain version keeps it")
+    # the library yardsticks: one index_add over the pre-gathered rows for
+    # the sum columns; for min/max the masked scatter_reduce route the
+    # executor took before K1 carried them (timed here, used nowhere)
+    sink = tp.num_out_tiles * tp.ts
+    sid_l = torch.where(ok, sid, sink).long()
+    rows = torch.where(ok[:, None], x[tp.gather_padded.long(), :n_sum], 0.0)
+    zeros = torch.zeros((sink + 1, n_sum), dtype=torch.float32, device=dev)
+    check(torch.equal(zeros.index_add(0, sid_l, rows)[:sink], p[:, :n_sum]),
+          f"K1 {name}: library call disagrees")
+
+    def scatter_route():
+        outs = []
+        for lo, n, red, fill in ((n_sum, n_min, "amin", float("inf")),
+                                 (n_sum + n_min, n_max, "amax", float("-inf"))):
+            if n:
+                src = torch.where(ok[:, None], x[tp.gather_padded.long(), lo:lo + n], fill)
+                out = torch.full((sink + 1, n), fill, device=dev)
+                outs.append(out.scatter_reduce_(0, sid_l[:, None].expand_as(src), src,
+                                                reduce=red, include_self=True))
+        return outs
+
+    if n_min + n_max:
+        check(torch.equal(torch.cat(scatter_route(), dim=1)[:sink], p[:, n_sum:]),
+              f"K1 {name}: the scatter_reduce route disagrees")
+    valid_rows = int(ok.sum())
+    # least bytes: each valid row's gather index and segment id, each value
+    # row the valid rows gather (once), m2out and the output
+    gathered = int(torch.unique(tp.gather_padded.reshape(-1)[ok]).numel())
+    moved = (2 * valid_rows * 4 + gathered * x.shape[1] * x.element_size()
+             + nbytes(tp.m2out, k1))
+    b, by = bound_ms(moved, valid_rows * x.shape[1])
+    out = {
+        "rows": int(sid.numel()), "valid_rows": valid_rows,
+        "channels": int(x.shape[1]), "monoids": list(monoids),
+        "segments": int(tp.num_segments), "max_abs_err": err,
+        "ms": time_ms(lambda: kernel(x), dev, reps),
+        "plain_ms": time_ms(lambda: plain(x), dev, reps),
+        "index_add_ms": time_ms(lambda: zeros.index_add(0, sid_l, rows), dev, reps),
+        "bound_ms": b, "bound_by": by,
+    }
+    out["library_ms"] = out["index_add_ms"]
+    if n_min + n_max:
+        out["scatter_reduce_ms"] = time_ms(scatter_route, dev, reps)
+        out["library_ms"] += out["scatter_reduce_ms"]
+    return out
+
+
+def kernel_segment_sum(plan, vals, dev, reps, rng):
+    """K1 at the two passes of one ``run()`` for (sum, count, avg, min, max),
+    in two forms.  ``sum``: the sum channels alone, as K1 carried them until
+    it took min and max (pass 1 sums the value column, pass 2 the stacked
+    (sum, count) partials; kept at these shapes so its times stay
+    comparable).  ``minmax``: the main path's form on a plan without ELL
+    layouts (pass 1 the value's sum, min and max; pass 2 the stacked (sum,
+    count, min, max) partials)."""
+    import torch
+
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_reduce_tiled
+
+    tp1, tp2 = plan.pass1, plan.pass2
     v = torch.from_numpy(vals.astype("float32")).to(dev)[:, None].contiguous()
-    t_sum = segment_sum_tiled(v, plan.pass1.gather_padded, plan.pass1.seg_tiles,
-                              plan.pass1.m2out, num_out_tiles=plan.pass1.num_out_tiles,
-                              tm=plan.pass1.tm, ts=plan.pass1.ts)[: plan.block_capacity]
-    t_mat = torch.cat([t_sum, plan.block_sizes[:, None]], dim=1).contiguous()
-    passes = {"pass1": (plan.pass1, v), "pass2": (plan.pass2, t_mat)}
-    per_pass, max_err = {}, 0.0
-    for name, (tp, x) in passes.items():
-        args = (tp.gather_padded, tp.seg_tiles, tp.m2out)
-        kw = dict(num_out_tiles=tp.num_out_tiles, tm=tp.tm, ts=tp.ts)
-        k1 = segment_sum_tiled(x, *args, **kw)
-        k2 = segment_sum_tiled(x, *args, **kw)
-        plain = segment_sum_plain(x, tp.gather_padded, tp.seg_tiles,
-                                  num_out_tiles=tp.num_out_tiles, ts=tp.ts)
-        torch.cuda.synchronize(dev)
-        check(torch.equal(k1, plain), f"K1 {name}: integer values not bitwise equal")
-        check(torch.equal(k1, k2), f"K1 {name}: two launches differ")
-        xn = torch.from_numpy(rng.normal(size=tuple(x.shape)).astype("float32")).to(dev)
-        kn = segment_sum_tiled(xn, *args, **kw)
-        pn = segment_sum_plain(xn, tp.gather_padded, tp.seg_tiles,
-                               num_out_tiles=tp.num_out_tiles, ts=tp.ts)
-        mass = segment_sum_plain(xn.abs(), tp.gather_padded, tp.seg_tiles,
-                                 num_out_tiles=tp.num_out_tiles, ts=tp.ts)
-        diff = (kn - pn).abs()
-        err = float(diff.max())
-        check(bool((diff <= TOL * mass).all()),
-              f"K1 {name}: normal values off by {err} (> {TOL} of sum|x|)")
-        max_err = max(max_err, err)
-        # the library yardstick: one index_add over the pre-gathered rows
-        sid = tp.seg_tiles.reshape(-1)
-        ok = sid >= 0
-        rows = torch.where(ok[:, None], x[tp.gather_padded.long()], 0.0)
-        sink = tp.num_out_tiles * tp.ts
-        sid_l = torch.where(ok, sid, sink).long()
-        zeros = torch.zeros((sink + 1, x.shape[1]), dtype=torch.float32, device=dev)
-        check(torch.equal(zeros.index_add(0, sid_l, rows)[:sink], plain),
-              f"K1 {name}: library call disagrees")
-        valid_rows = int(ok.sum())
-        # least bytes: each valid row's gather index and segment id, each
-        # value row the valid rows gather (once), m2out and the output
-        gathered = int(torch.unique(tp.gather_padded.reshape(-1)[ok]).numel())
-        moved = (2 * valid_rows * 4 + gathered * x.shape[1] * x.element_size()
-                 + nbytes(tp.m2out, k1))
-        b, by = bound_ms(moved, valid_rows * x.shape[1])
-        per_pass[name] = {
-            "rows": int(sid.numel()), "valid_rows": valid_rows,
-            "channels": int(x.shape[1]), "segments": int(tp.num_segments),
-            "ms": time_ms(lambda: segment_sum_tiled(x, *args, **kw), dev, reps),
-            "plain_ms": time_ms(lambda: segment_sum_plain(
-                x, tp.gather_padded, tp.seg_tiles, num_out_tiles=tp.num_out_tiles,
-                ts=tp.ts), dev, reps),
-            "library_ms": time_ms(lambda: zeros.index_add(0, sid_l, rows), dev, reps),
-            "bound_ms": b, "bound_by": by,
-        }
-    total = {k: sum(p[k] for p in per_pass.values())
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    total["bound_by"] = ("bytes" if all(p["bound_by"] == "bytes"
-                                        for p in per_pass.values())
-                         else "operations")
-    return per_pass, total, max_err
+    v3 = v.expand(-1, 3).contiguous()
+    t = segment_reduce_tiled(v3, tp1.gather_padded, tp1.seg_tiles, tp1.m2out,
+                             monoids=(1, 1, 1), num_out_tiles=tp1.num_out_tiles,
+                             tm=tp1.tm, ts=tp1.ts)[: plan.block_capacity]
+    sizes = plan.block_sizes[:, None]
+    forms = {
+        "sum": {"pass1": (tp1, v, (1, 0, 0)),
+                "pass2": (tp2, torch.cat([t[:, :1], sizes], dim=1).contiguous(), (2, 0, 0))},
+        "minmax": {"pass1": (tp1, v3, (1, 1, 1)),
+                   "pass2": (tp2, torch.cat([t[:, :1], sizes, t[:, 1:]], dim=1).contiguous(),
+                             (2, 1, 1))},
+    }
+    out = {}
+    for form, passes in forms.items():
+        per_pass = {name: _k1_pass(f"{form} {name}", tp, x, m, dev, reps, rng,
+                                   nan_case=form == "minmax")
+                    for name, (tp, x, m) in passes.items()}
+        # per run(): the two passes' times added, as earlier runs timed K1
+        total = {k: sum(p[k] for p in per_pass.values())
+                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+
+        def both_passes():  # as run() issues them: pass 1, then pass 2
+            for tp, x, m in passes.values():
+                segment_reduce_tiled(x, tp.gather_padded, tp.seg_tiles, tp.m2out,
+                                     monoids=m, num_out_tiles=tp.num_out_tiles,
+                                     tm=tp.tm, ts=tp.ts)
+
+        # beside it: the two passes back to back, so the host's enqueue of
+        # pass 2 overlaps pass 1 on the card as in run()
+        total["back_to_back_ms"] = time_ms(both_passes, dev, reps)
+        total["bound_by"] = ("bytes" if all(p["bound_by"] == "bytes"
+                                            for p in per_pass.values())
+                             else "operations")
+        total["max_abs_err"] = max(p["max_abs_err"] for p in per_pass.values())
+        out[form] = {"per_pass": per_pass, **total}
+    return out
 
 
 def kernel_bitset_expand(g, dev, reps, rng):
@@ -348,18 +443,37 @@ def make_batch(g, args, rng):
 
 
 def profile_phase(sess, state, args, rng, dev, unprofiled_ms):
-    """One more ``update()`` and ``run()`` under ``torch.profiler`` (see
-    :func:`device_profile`); the profiled ``run()`` is checked against the
-    host index."""
+    """One more ``update()``, ``run()`` and ``run_many()`` under
+    ``torch.profiler`` (see :func:`device_profile`); the profiled ``run()``
+    and two rows of the ``run_many()`` are checked against the host index,
+    and each ran K1 twice and no ``scatter`` kernel."""
+    import numpy as np
+
     out = {}
     batch = make_batch(sess.graph, args, rng)
     out["update"] = device_profile(lambda: sess.update(batch), dev,
                                    unprofiled_ms["update"])
     res = []
     out["run"] = device_profile(lambda: res.append(sess.run()), dev,
-                                unprofiled_ms["run"])
+                                unprofiled_ms["run"],
+                                match=("scatter", "segment_reduce_kernel"))
     check_results(res[0], host_expect(state.index, sess.graph.attrs["val"]),
                   "profiled run vs host index")
+    vb = rng.integers(0, 100, (8, sess.graph.n)).astype(np.float64)
+    many = []
+    out["run_many"] = device_profile(lambda: many.append(sess.run_many(vb)), dev,
+                                     unprofiled_ms["run_many"],
+                                     match=("scatter", "segment_reduce_kernel"))
+    for b in (0, vb.shape[0] - 1):
+        check_results([m[b] for m in many[0]], host_expect(state.index, vb[b]),
+                      f"profiled run_many row {b} vs host index")
+    for call in ("run", "run_many"):
+        matched, top = out[call]["matched"], out[call].get("top_device_events")
+        check(matched["scatter"]["device_ms"] == 0 and matched["scatter"]["launches"] == 0,
+              f"the profiled {call}() ran scatter kernels: {matched['scatter']}")
+        check(matched["segment_reduce_kernel"]["launches"] == 2,
+              f"the profiled {call}() ran K1 {matched['segment_reduce_kernel']['launches']} "
+              f"times; the trace's device events: {top}")
     return out
 
 
@@ -380,14 +494,28 @@ def drive_main_path(sess, state, args, rng):
     t = time.perf_counter()
     res = sess.run()
     run_ms = [(time.perf_counter() - t) * 1e3]
+    check(segment_sum_tiled.launches == 2,
+          f"run() made {segment_sum_tiled.launches} K1 launches, not 2")
     count0 = recompile_count()
     check_results(res, host_expect(state.index, sess.graph.attrs["val"]), "run v0")
     t = time.perf_counter()
     many = sess.run_many(vb)
-    run_many_ms = (time.perf_counter() - t) * 1e3
+    run_many_first = (time.perf_counter() - t) * 1e3
+    check(segment_sum_tiled.launches == 4,
+          f"run_many() made {segment_sum_tiled.launches - 2} K1 launches, not 2")
     for b in range(vb.shape[0]):
         for a, m, r in zip(AGGS, many, sess.run(vb[b])):
             check(np.array_equal(m[b], r), f"run_many row {b} differs from run: {a}")
+    # warm: run_many again, beside the eight run()s of its rows
+    run_many_ms, eight_runs_ms = [], []
+    for _ in range(5):
+        t = time.perf_counter()
+        sess.run_many(vb)
+        run_many_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        for b in range(vb.shape[0]):
+            sess.run(vb[b])
+        eight_runs_ms.append((time.perf_counter() - t) * 1e3)
     def step(version):
         """One ``update()`` then one checked ``run()``: (report, update ms)."""
         batch = make_batch(sess.graph, args, rng)
@@ -424,7 +552,9 @@ def drive_main_path(sess, state, args, rng):
                 "bitset_expand": bitset_expand_tiled.launches}
     return {
         "run_ms": statistics.median(run_ms), "run_ms_first": run_ms[0],
-        "run_many_ms": run_many_ms, "run_many_batch": int(vb.shape[0]),
+        "run_many_ms": statistics.median(run_many_ms), "run_many_ms_first": run_many_first,
+        "run_many_ms_all": run_many_ms, "eight_runs_ms": statistics.median(eight_runs_ms),
+        "run_many_batch": int(vb.shape[0]),
         "update_ms": statistics.median(update_ms), "update_ms_all": update_ms,
         "batches": args.batches, "edits_per_batch": args.inserts + args.deletes,
         "affected_owners": affected, "reorganized": reorganized,
@@ -619,8 +749,8 @@ def device_profile(fn, dev, unprofiled_ms, match=()):
     are left out) against ``unprofiled_ms``, the unprofiled median wall time
     of the same call, which gives the device's idle share; for each
     substring in ``match``, the device time and share of the events whose
-    name holds it.  The profiler's own host overhead is inside
-    ``wall_ms_profiled`` only."""
+    name holds it, and each such event's device time in launch order.  The
+    profiler's own host overhead is inside ``wall_ms_profiled`` only."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -634,12 +764,16 @@ def device_profile(fn, dev, unprofiled_ms, match=()):
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    launches = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)
     matched = {}
     for sub in match:
         ms = sum(e.self_device_time_total for e in events if sub in e.key) / 1e3
         matched[sub] = {"device_ms": ms, "launches": sum(e.count for e in events
                                                          if sub in e.key),
-                        "share_of_device": ms / device_ms if events else "not measured"}
+                        "share_of_device": ms / device_ms if events else "not measured",
+                        "by_launch_ms": [e.self_device_time_total / 1e3
+                                         for e in launches if sub in e.name]}
     return {
         "matched": matched,
         "wall_ms_profiled": wall_ms_profiled,
@@ -853,9 +987,13 @@ def run(args, dev) -> None:
 
     t = time.perf_counter()
     secs = build.build()
+    ptxas = {name: build.ptxas_report(name) for name in secs}
     emit({"phase": "build", "seconds": time.perf_counter() - t,
-          "per_kernel_s": secs,
-          "ptxas": {name: build.ptxas_report(name) for name in secs}})
+          "per_kernel_s": secs, "ptxas": ptxas})
+    k1_funcs = ptxas["segment_sum"]["functions"]
+    check(bool(k1_funcs) and all(f.get("spill_stores") == 0 and f.get("spill_loads") == 0
+                                 for f in k1_funcs.values()),
+          f"K1's ptxas report shows spills: {k1_funcs}")
 
     t = time.perf_counter()
     g = with_random_attrs(erdos_renyi(args.n, args.degree, directed=False,
@@ -874,10 +1012,9 @@ def run(args, dev) -> None:
           "pass2_rows": int(plan.pass2.seg_tiles.numel()),
           "p1_ell_is_none": plan.p1_ell is None, "policy": str(policy)})
 
-    per_pass, k1, k1_err = kernel_segment_sum(plan, g.attrs["val"], dev,
-                                              args.reps, rng)
-    emit({"phase": "kernel:segment_sum", "check": "ok", "max_abs_err": k1_err,
-          "per_pass": per_pass, **k1})
+    k1_forms = kernel_segment_sum(plan, g.attrs["val"], dev, args.reps, rng)
+    emit({"phase": "kernel:segment_sum", "check": "ok", **k1_forms})
+    k1 = k1_forms["sum"]
     k2 = kernel_bitset_expand(g, dev, args.reps, rng)
     emit({"phase": "kernel:bitset_expand", "check": "ok", **k2})
 
@@ -885,7 +1022,8 @@ def run(args, dev) -> None:
     emit({"phase": "session", **main})
     emit({"phase": "profile", **profile_phase(
         sess, state, args, rng, dev,
-        {"run": main["run_ms"], "update": main["update_ms"]})})
+        {"run": main["run_ms"], "run_many": main["run_many_ms"],
+         "update": main["update_ms"]})})
     launches = main["launches"]
     check(launches["segment_sum"] > 0, "the main path launched no K1")
     check(launches["bitset_expand"] > 0, "the main path launched no K2")
@@ -908,9 +1046,14 @@ def run(args, dev) -> None:
         {"name": "segment_sum", "route": "cuda",
          "source": "src/repro_torch/csrc/segment_sum.cu",
          "replaces": "src/repro/kernels/segment_reduce/segment_reduce.py:69",
-         "launches": launches["segment_sum"], "max_abs_err": k1_err,
+         "launches": launches["segment_sum"], "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"], "check": "ok"},
+         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
+         "back_to_back_ms": k1["back_to_back_ms"],
+         "minmax_form": {key: k1_forms["minmax"][key] for key in
+                         ("ms", "back_to_back_ms", "plain_ms", "bound_ms", "library_ms",
+                          "max_abs_err")},
+         "check": "ok"},
         {"name": "bitset_expand", "route": "cuda",
          "source": "src/repro_torch/csrc/bitset_expand.cu",
          "replaces": "src/repro/kernels/bitset_expand/bitset_expand.py:81",
@@ -954,6 +1097,10 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20, help="timed launches")
     ap.add_argument("--out", default=None, help="also write the JSON lines here")
     args = ap.parse_args(argv)
+    # keep CUPTI attached between profiled calls (torch tears it down after
+    # each by default; after such a re-attach a trace has been seen to miss
+    # every launch of the port's own libraries)
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     import torch
 
     if not torch.cuda.is_available():

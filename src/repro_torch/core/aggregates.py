@@ -50,27 +50,6 @@ class Monoid:
             return dtype.type(info.max if self.name == "min" else info.min)
         return dtype.type(self.identity)
 
-    def torch_segment(self):
-        """``(src [M(, C)], seg [M], num_segments) -> [S(, C)]`` segment
-        reduce in torch: ``scatter_reduce`` seeded with the monoid identity
-        (``index_add_`` for sum), so empty segments hold the identity."""
-        import torch
-
-        reduce = {"add": "sum", "minimum": "amin",
-                  "maximum": "amax"}[self.np_op.__name__]
-
-        def segment(src, seg, num_segments):
-            shape = (num_segments,) + tuple(src.shape[1:])
-            out = torch.full(shape, self.identity_for(np.float64).item(),
-                             dtype=src.dtype, device=src.device)
-            idx = seg.long()
-            if src.dim() > 1:
-                idx = idx.view(-1, *([1] * (src.dim() - 1))).expand_as(src)
-            return out.scatter_reduce_(0, idx, src, reduce=reduce,
-                                       include_self=True)
-
-        return segment
-
 
 SUM = Monoid("sum", np.add, 0.0)
 MIN = Monoid("min", np.minimum, np.inf)

@@ -5,11 +5,11 @@ tile plans — members→blocks, then links→owners — each one fused gather +
 segment sum (kernel K1, DESIGN.md §2).
 
 :func:`query_dbindex_multi` is the fused multi-aggregate executor behind
-:mod:`repro_torch.core.api`: one K1 launch per pass feeds every sum channel
-(the channels stack into the columns of one matrix; a ``[B, n]`` batch of
-attribute vectors adds ``B`` columns per channel), and min/max ride dense
-ELL layouts or a masked ``scatter_reduce``, so k aggregates over one window
-cost roughly one query instead of k.
+:mod:`repro_torch.core.api`: one K1 launch per pass feeds every channel
+(the channels stack into the columns of one matrix, each with its monoid —
+sum, min or max; a ``[B, n]`` batch of attribute vectors adds ``B`` columns
+per channel), and min/max ride dense ELL layouts instead when the plan has
+them, so k aggregates over one window cost roughly one query instead of k.
 """
 
 from __future__ import annotations
@@ -20,14 +20,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.aggregates import MONOIDS, TORCH_XP, pack_channels
+from repro_torch.core.aggregates import TORCH_XP, pack_channels
 from repro_torch.core.dbindex import DBIndex
 from repro_torch.device import resolve_device, upload
 from repro_torch.kernels.segment_reduce.ops import (
     TilePlan,
     build_tile_plan,
     patch_tile_plan,
-    segment_sum,
+    segment_reduce_multi,
 )
 
 # ---------------------------------------------------------------------- #
@@ -318,38 +318,6 @@ def _ell_reduce(ell: torch.Tensor, vec: torch.Tensor, op: str) -> torch.Tensor:
     return rows.amin(dim=1) if op == "min" else rows.amax(dim=1)
 
 
-def _segment_minmax_gathered(tp: TilePlan, gathered: torch.Tensor,
-                             num_segments: int, op: str) -> torch.Tensor:
-    """Masked segment min/max over pre-gathered rows ``[Mpad, B]`` in plan
-    layout (``scatter_reduce`` seeded with the identity)."""
-    sid = tp.seg_tiles.reshape(-1)
-    valid = sid >= 0
-    fill = float("inf") if op == "min" else float("-inf")
-    masked = torch.where(valid[:, None], gathered,
-                         torch.full((), fill, dtype=gathered.dtype,
-                                    device=gathered.device))
-    seg = torch.where(valid, sid, num_segments)
-    return MONOIDS[op].torch_segment()(masked, seg, num_segments + 1)[:num_segments]
-
-
-def _minmax_pass1(plan: DBIndexPlan, values: torch.Tensor, op: str):
-    """Block partials for an idempotent monoid: ELL fast path when the plan
-    carries one, else the masked segment reduce over the tile layout
-    (sized by block_capacity — static under streamed updates)."""
-    if plan.p1_ell is not None:
-        return _ell_reduce(plan.p1_ell, values, op)
-    gathered = values[plan.pass1.gather_padded.long()]
-    return _segment_minmax_gathered(plan.pass1, gathered,
-                                    plan.block_capacity, op)
-
-
-def _minmax_pass2(plan: DBIndexPlan, t: torch.Tensor, op: str):
-    if plan.p2_ell is not None:
-        return _ell_reduce(plan.p2_ell, t, op)
-    gathered = t[plan.pass2.gather_padded.long()]
-    return _segment_minmax_gathered(plan.pass2, gathered, plan.n, op)
-
-
 #: distinct (plan shape, aggregates, values shape, device) signatures the
 #: executor has run — the port's analogue of the reference's jit cache
 #: entries (see :func:`repro_torch.core.api.recompile_count`)
@@ -361,25 +329,41 @@ def signature_count() -> int:
     return len(_SIGNATURES)
 
 
+def _stacked_pass(tp: TilePlan, cols: dict, order: list, b: int,
+                  monoid_of: dict) -> dict:
+    """One K1 launch over the channels ``order`` (sum, then min, then max
+    columns, ``b`` batch columns each): ``{channel: [S, b]}``."""
+    if not order:
+        return {}
+    mat = torch.cat([cols[ci] for ci in order], dim=1)
+    counts = tuple(b * sum(monoid_of[ci] == m for ci in order)
+                   for m in ("sum", "min", "max"))
+    red = segment_reduce_multi(tp, mat, counts)
+    return {ci: red[:, j * b:(j + 1) * b] for j, ci in enumerate(order)}
+
+
 def _query_dbindex_multi_channels(plan: DBIndexPlan, values: torch.Tensor,
                                   aggs: tuple):
     """Channel core of :func:`query_dbindex_multi` over a ``[n, B]`` float32
     column batch: returns the deduped monoid channels, each ``[n, B]``.
 
-    Every sum channel of every batch column rides one K1 launch per pass:
-    pass 1 stacks the value/square columns (the count channel reads the
-    host-exact ``block_sizes`` and skips pass 1), pass 2 stacks the
-    ``[block_capacity, C·B]`` partial matrix.  K1 sums each column in plan
-    row order whatever the column count, so a batch column equals the
+    Every channel of every batch column rides one K1 launch per pass, sum
+    columns first, then min, then max: pass 1 stacks the value/square
+    columns (the count channel reads the host-exact ``block_sizes`` and
+    skips pass 1), pass 2 the ``[block_capacity, C·B]`` partial matrix.  A
+    plan with ELL layouts takes min/max through them instead (one dense
+    gather + axis reduce a pass).  K1 reduces each column in an order fixed
+    by the plan whatever the column count, so a batch column equals the
     unbatched result bit for bit."""
     _SIGNATURES.add((plan.shape_signature(), aggs, tuple(values.shape),
                      str(plan.device)))
     pack = pack_channels(aggs)
     b = values.shape[1]
-    sum_cols = pack.channels_of("sum")
-    minmax_cols = [
-        (ci, m, s) for ci, (m, s) in enumerate(pack.channels) if m != "sum"
-    ]
+    monoid_of = {ci: m for ci, (m, _) in enumerate(pack.channels)}
+    ell = plan.p1_ell is not None
+    # K1's column groups: sum, then min, then max
+    k1 = [ci for m in ("sum", "min", "max") for ci in monoid_of
+          if monoid_of[ci] == m and (m == "sum" or not ell)]
     squares = None
 
     def source(src: str) -> torch.Tensor:
@@ -391,31 +375,26 @@ def _query_dbindex_multi_channels(plan: DBIndexPlan, values: torch.Tensor,
         return squares
 
     # ---- pass 1: one launch over the stacked value/square columns ------ #
-    t_cols = {}
-    gathered_cols = [ci for ci in sum_cols if pack.channels[ci][1] != "ones"]
-    if gathered_cols:
-        mat = torch.cat([source(pack.channels[ci][1]) for ci in gathered_cols],
-                        dim=1)
-        t = segment_sum(plan.pass1, mat)
-        for j, ci in enumerate(gathered_cols):
-            t_cols[ci] = t[:, j * b:(j + 1) * b]
-    for ci in sum_cols:
-        if pack.channels[ci][1] == "ones":
+    gathered = {ci: source(pack.channels[ci][1]) for ci in k1
+                if pack.channels[ci] != ("sum", "ones")}
+    t_cols = _stacked_pass(plan.pass1, gathered,
+                           [ci for ci in k1 if ci in gathered], b, monoid_of)
+    for ci in k1:
+        if ci not in gathered:
             # block cardinalities are host-exact plan metadata
             t_cols[ci] = plan.block_sizes[:, None].expand(-1, b)
-    for ci, mname, src in minmax_cols:
-        t_cols[ci] = _minmax_pass1(plan, source(src), mname)
+    if ell:
+        for ci, (mname, src) in enumerate(pack.channels):
+            if mname != "sum":
+                t_cols[ci] = _ell_reduce(plan.p1_ell, source(src), mname)
 
-    # ---- pass 2: one launch over the stacked sum-channel matrix; min/max
-    # ride the dense ELL layout (idempotent, order-insensitive) ----------- #
-    outs = {}
-    if sum_cols:
-        t_mat = torch.cat([t_cols[ci] for ci in sum_cols], dim=1)
-        reduced = segment_sum(plan.pass2, t_mat)
-        for j, ci in enumerate(sum_cols):
-            outs[ci] = reduced[:, j * b:(j + 1) * b]
-    for ci, mname, _ in minmax_cols:
-        outs[ci] = _minmax_pass2(plan, t_cols[ci], mname)
+    # ---- pass 2: one launch over the stacked partial matrix; with ELL
+    # layouts min/max take the dense gather (idempotent, order-insensitive) #
+    outs = _stacked_pass(plan.pass2, t_cols, k1, b, monoid_of)
+    if ell:
+        for ci, (mname, _) in enumerate(pack.channels):
+            if mname != "sum":
+                outs[ci] = _ell_reduce(plan.p2_ell, t_cols[ci], mname)
     return tuple(outs[ci] for ci in range(len(pack.channels)))
 
 

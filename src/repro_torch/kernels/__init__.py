@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for the data planes (sources in ``csrc/``).
 
-* ``segment_reduce`` — K1, fused gather + tiled segment sum: DBIndex pass
-  1 and pass 2 of every sum/count/avg query.
+* ``segment_reduce`` — K1, fused gather + tiled segment reduction with a
+  sum, min or max per column: DBIndex pass 1 and pass 2 of every query
+  (min/max ride it when the plan has no ELL layout).
 * ``bitset_expand``  — K2, one BFS hop over packed bitsets: the
   affected-owner BFS of streamed updates.
 * ``flash_attention`` — K3, causal GQA flash attention forward: the dense

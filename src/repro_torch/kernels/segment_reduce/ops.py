@@ -5,9 +5,10 @@ renumbers nothing (ids are already dense) but groups rows by output tile and
 pads so the kernel sees a tile-aligned layout.  The returned plan holds
 int32 tensors on an explicit device.
 
-``segment_sum(plan, values)`` = fused gather + tiled segment sum (one K1
-launch on a CUDA tensor).  ``segment_reduce(...)`` adds the min/max
-reductions, which stay plain torch ops.
+``segment_sum(plan, values)`` = fused gather + tiled segment sum, and
+``segment_reduce_multi(plan, values, monoids)`` the same with a sum, min or
+max per column: one K1 launch on a CUDA tensor either way.
+``segment_reduce(...)`` is the general entry point by op name.
 """
 
 from __future__ import annotations
@@ -22,8 +23,12 @@ from repro_torch.device import resolve_device, upload
 from repro_torch.kernels.segment_reduce.segment_reduce import (
     DEFAULT_TM,
     DEFAULT_TS,
-    segment_sum_tiled,
+    segment_reduce_tiled,
 )
+
+#: the K1 monoid split (n_sum, n_min, n_max) of ``c`` columns all of ``op``
+_ALL_OF = {"add": lambda c: (c, 0, 0), "min": lambda c: (0, c, 0),
+           "max": lambda c: (0, 0, c)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -248,11 +253,13 @@ def patch_tile_plan(
                  num_segments, n_out_new, tm, ts, dev)
 
 
-def _segment_sum(plan: TilePlan, values: torch.Tensor, gather) -> torch.Tensor:
+def _segment_reduce(plan: TilePlan, values: torch.Tensor, gather,
+                    monoids=None) -> torch.Tensor:
     squeeze = values.dim() == 1
     v = values[:, None] if squeeze else values
-    out = segment_sum_tiled(
+    out = segment_reduce_tiled(
         v.to(torch.float32).contiguous(), gather, plan.seg_tiles, plan.m2out,
+        monoids=monoids or (v.shape[1], 0, 0),
         num_out_tiles=plan.num_out_tiles, tm=plan.tm, ts=plan.ts,
     )[: plan.num_segments]
     return out[:, 0] if squeeze else out
@@ -261,31 +268,36 @@ def _segment_sum(plan: TilePlan, values: torch.Tensor, gather) -> torch.Tensor:
 def segment_sum_gathered(plan: TilePlan, gathered: torch.Tensor) -> torch.Tensor:
     """Tiled segment sum over pre-gathered rows ([Mpad] or [Mpad, D]) ->
     [S(, D)] float32."""
-    return _segment_sum(plan, gathered, None)
+    return _segment_reduce(plan, gathered, None)
 
 
 def segment_sum(plan: TilePlan, values: torch.Tensor) -> torch.Tensor:
     """Fused gather + tiled segment sum (one kernel launch on the card).
     values: [N] or [N, D] -> [S(, D)] float32."""
-    return _segment_sum(plan, values, plan.gather_padded)
+    return _segment_reduce(plan, values, plan.gather_padded)
+
+
+def segment_reduce_multi(plan: TilePlan, values: torch.Tensor,
+                         monoids) -> torch.Tensor:
+    """Fused gather + tiled segment reduction with a monoid per column (one
+    kernel launch on the card): ``values`` ``[N, C]`` whose columns are
+    ``monoids = (n_sum, n_min, n_max)`` consecutive sum, min and max groups
+    -> ``[S, C]`` float32, the identity (0, +inf, -inf) in empty segments."""
+    return _segment_reduce(plan, values, plan.gather_padded, monoids)
 
 
 def segment_reduce(values: torch.Tensor, gather_idx, segment_ids,
                    num_segments: int, op: str = "add",
                    plan: Optional[TilePlan] = None) -> torch.Tensor:
-    """General entry point.  SUM goes through the K1 kernel (plan required
-    or built eagerly, on ``values``' device); min/max use the plain torch
-    segment reduction."""
-    if op == "add":
-        if plan is None:
-            plan = build_tile_plan(
-                np.asarray(gather_idx), np.asarray(segment_ids), num_segments,
-                torch_device=values.device,
-            )
-        return segment_sum(plan, values)
-    from repro_torch.kernels.segment_reduce.ref import segment_reduce_ref
-
-    return segment_reduce_ref(
-        values, torch.as_tensor(np.asarray(gather_idx), device=values.device),
-        torch.as_tensor(np.asarray(segment_ids), device=values.device),
-        num_segments, op)
+    """General entry point: ``op`` ("add", "min" or "max") over every
+    column, through the K1 kernel on ``plan`` (built eagerly on ``values``'
+    device when not given)."""
+    if op not in _ALL_OF:
+        raise ValueError(op)
+    if plan is None:
+        plan = build_tile_plan(
+            np.asarray(gather_idx), np.asarray(segment_ids), num_segments,
+            torch_device=values.device,
+        )
+    cols = 1 if values.dim() == 1 else values.shape[1]
+    return _segment_reduce(plan, values, plan.gather_padded, _ALL_OF[op](cols))

@@ -1,16 +1,19 @@
-"""Kernel K1: fused gather + tiled segment sum over a tile plan.
+"""Kernel K1: fused gather + tiled segment reduction over a tile plan, with
+a monoid (sum, min or max) per column.
 
 The CUDA kernel is ``csrc/segment_sum.cu`` (its opening note says what it
-replaces and how it is designed).  :func:`segment_sum_tiled` launches it for
-CUDA tensors and takes :func:`segment_sum_plain` — a masked ``index_add_``
-over the same plan layout — only for tensors on the CPU.  The plain version
-is also the kernel's oracle on the card.
+replaces and how it is designed).  :func:`segment_reduce_tiled` launches it
+for CUDA tensors and takes :func:`segment_reduce_plain` — ``index_add_`` for
+the sum columns, ``scatter_reduce`` seeded with the identity for min and
+max, over the same plan layout — only for tensors on the CPU.  The plain
+version is also the kernel's oracle on the card.  :func:`segment_sum_tiled`
+is the all-sum case.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -25,47 +28,68 @@ _I = ctypes.c_int
 
 def _lib():
     lib = _build.load("segment_sum")
-    fn = lib.segment_sum_f32
+    fn = lib.segment_reduce_f32
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
+        fn.argtypes = [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _P, _P]
         fn.restype = ctypes.c_int
     return fn
 
 
-def segment_sum_plain(values: torch.Tensor, gather: Optional[torch.Tensor],
-                      seg_tiles: torch.Tensor, *, num_out_tiles: int,
-                      ts: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`segment_sum_tiled`: gather the rows,
-    zero the pad rows and ``index_add_`` them into a sink-extended output."""
+def segment_reduce_plain(values: torch.Tensor, gather: Optional[torch.Tensor],
+                         seg_tiles: torch.Tensor, *, monoids: Tuple[int, int, int],
+                         num_out_tiles: int, ts: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`segment_reduce_tiled`: gather the
+    rows, route the pad rows to a sink segment, then ``index_add_`` the sum
+    columns and ``scatter_reduce`` (``amin`` / ``amax`` over the identity)
+    the min and max columns."""
+    n_sum, n_min, n_max = monoids
     sid = seg_tiles.reshape(-1)
     ok = sid >= 0
     rows = values if gather is None else values.index_select(0, gather.long())
-    rows = torch.where(ok[:, None], rows, torch.zeros((), dtype=rows.dtype,
-                                                      device=rows.device))
     sink = num_out_tiles * ts
-    out = torch.zeros((sink + 1, values.shape[1]), dtype=torch.float32,
-                      device=values.device)
-    out.index_add_(0, torch.where(ok, sid, sink).long(), rows)
-    return out[:sink]
+    seg = torch.where(ok, sid, sink).long()
+    parts = []
+    if n_sum:
+        src = torch.where(ok[:, None], rows[:, :n_sum],
+                          torch.zeros((), dtype=rows.dtype, device=rows.device))
+        out = torch.zeros((sink + 1, n_sum), dtype=torch.float32, device=values.device)
+        parts.append(out.index_add_(0, seg, src))
+    for lo, n, reduce, fill in ((n_sum, n_min, "amin", float("inf")),
+                                (n_sum + n_min, n_max, "amax", float("-inf"))):
+        if not n:
+            continue
+        src = torch.where(ok[:, None], rows[:, lo:lo + n],
+                          torch.full((), fill, dtype=rows.dtype, device=rows.device))
+        out = torch.full((sink + 1, n), fill, dtype=torch.float32, device=values.device)
+        parts.append(out.scatter_reduce_(0, seg[:, None].expand_as(src), src,
+                                         reduce=reduce, include_self=True))
+    if not parts:
+        return torch.empty((sink, 0), dtype=torch.float32, device=values.device)
+    return torch.cat(parts, dim=1)[:sink]
 
 
-def segment_sum_tiled(values: torch.Tensor, gather: Optional[torch.Tensor],
-                      seg_tiles: torch.Tensor, m2out: torch.Tensor, *,
-                      num_out_tiles: int, tm: int = DEFAULT_TM,
-                      ts: int = DEFAULT_TS) -> torch.Tensor:
-    """Segment sums ``[num_out_tiles * ts, C]`` f32 of ``values[gather[r]]``
-    over the plan rows ``r`` (``gather=None``: ``values`` holds the
-    pre-gathered ``[Mpad, C]`` rows).
+def segment_reduce_tiled(values: torch.Tensor, gather: Optional[torch.Tensor],
+                         seg_tiles: torch.Tensor, m2out: torch.Tensor, *,
+                         monoids: Tuple[int, int, int], num_out_tiles: int,
+                         tm: int = DEFAULT_TM, ts: int = DEFAULT_TS) -> torch.Tensor:
+    """Segment reductions ``[num_out_tiles * ts, C]`` f32 of
+    ``values[gather[r]]`` over the plan rows ``r`` (``gather=None``:
+    ``values`` holds the pre-gathered ``[Mpad, C]`` rows).  ``monoids =
+    (n_sum, n_min, n_max)`` splits the ``C`` columns into consecutive sum,
+    min and max groups; an empty segment holds each monoid's identity (0,
+    +inf, -inf), and min/max propagate NaN.
 
     ``values`` is ``[S, C]`` float32; ``gather`` ``[nm * tm]`` and
     ``seg_tiles`` ``[nm, tm]`` (``-1`` on pad rows) and ``m2out`` ``[nm]``
     (non-decreasing) are int32, as :func:`build_tile_plan` lays them out.
-    CPU tensors take :func:`segment_sum_plain`; CUDA tensors launch the
-    kernel, and anything the kernel does not take raises."""
+    CPU tensors take :func:`segment_reduce_plain`; CUDA tensors launch the
+    kernel, and anything the kernel does not take raises.  Every launch adds
+    one to ``segment_sum_tiled.launches``."""
     nm = seg_tiles.shape[0]
+    dev = values.device
     _build.check_tensor(values, torch.float32, 2, "values")
-    _build.check_tensor(seg_tiles, torch.int32, 2, "seg_tiles", values.device)
-    _build.check_tensor(m2out, torch.int32, 1, "m2out", values.device)
+    _build.check_tensor(seg_tiles, torch.int32, 2, "seg_tiles", dev)
+    _build.check_tensor(m2out, torch.int32, 1, "m2out", dev)
     if tuple(seg_tiles.shape) != (nm, tm) or m2out.shape[0] != nm:
         raise ValueError(f"plan shapes disagree: seg_tiles {tuple(seg_tiles.shape)}"
                          f", m2out {tuple(m2out.shape)}, tm={tm}")
@@ -73,32 +97,53 @@ def segment_sum_tiled(values: torch.Tensor, gather: Optional[torch.Tensor],
         if values.shape[0] != nm * tm:
             raise ValueError(f"pre-gathered rows {values.shape[0]} != {nm * tm}")
     else:
-        _build.check_tensor(gather, torch.int32, 1, "gather", values.device)
+        _build.check_tensor(gather, torch.int32, 1, "gather", dev)
         if gather.shape[0] != nm * tm:
             raise ValueError(f"gather rows {gather.shape[0]} != {nm * tm}")
-    if values.device.type == "cpu":
-        return segment_sum_plain(values, gather, seg_tiles,
-                                 num_out_tiles=num_out_tiles, ts=ts)
-    if values.device.type != "cuda":
-        raise ValueError(f"segment_sum_tiled: unsupported device {values.device}")
-    if 2 * ts * 4 > 227 * 1024:
-        raise ValueError(f"ts={ts} needs more shared memory than a block has")
+    monoids = tuple(int(x) for x in monoids)
     channels = values.shape[1]
-    out = torch.empty((num_out_tiles * ts, channels), dtype=torch.float32,
-                      device=values.device)
-    if channels == 0 or nm == 0:
-        return out.zero_()
+    if len(monoids) != 3 or min(monoids) < 0 or sum(monoids) != channels:
+        raise ValueError(f"monoids (n_sum, n_min, n_max) = {monoids} do not "
+                         f"split the {channels} columns")
+    if dev.type == "cpu":
+        return segment_reduce_plain(values, gather, seg_tiles, monoids=monoids,
+                                    num_out_tiles=num_out_tiles, ts=ts)
+    if dev.type != "cuda":
+        raise ValueError(f"segment_reduce_tiled: unsupported device {dev}")
+    if nm == 0 or tm % 4:
+        raise ValueError(f"the kernel needs at least one input tile and tm % 4 == 0 "
+                         f"(nm={nm}, tm={tm})")
+    for t in (seg_tiles, gather):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("plan index arrays must be 16-byte aligned")
+    if channels * 16 > 200 * 1024:  # each of a block's 4 warps keeps a [C] carry
+        raise ValueError(f"{channels} columns need more shared memory than a block has")
+    out = torch.empty((num_out_tiles * ts, channels), dtype=torch.float32, device=dev)
+    if channels == 0:
+        return out
     fn = _lib()
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream(values.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(values.data_ptr(), None if gather is None else gather.data_ptr(),
-                 seg_tiles.data_ptr(), m2out.data_ptr(), nm, tm, ts,
-                 num_out_tiles, channels, out.data_ptr(), stream)
-    _build.check(err, "segment_sum_f32")
+                 seg_tiles.data_ptr(), m2out.data_ptr(), nm * tm, tm, ts, channels,
+                 monoids[0], monoids[1], out.data_ptr(), stream)
+    _build.check(err, "segment_reduce_f32")
     segment_sum_tiled.launches += 1
     return out
 
 
-#: kernel launches so far (a plain count; callers may reset it to 0)
-segment_sum_tiled.launches = 0
+def segment_sum_tiled(values: torch.Tensor, gather: Optional[torch.Tensor],
+                      seg_tiles: torch.Tensor, m2out: torch.Tensor, *,
+                      num_out_tiles: int, tm: int = DEFAULT_TM,
+                      ts: int = DEFAULT_TS) -> torch.Tensor:
+    """:func:`segment_reduce_tiled` with every column a sum: segment sums
+    ``[num_out_tiles * ts, C]`` f32 (0 in an empty segment)."""
+    channels = values.shape[1] if values.dim() == 2 else 0
+    return segment_reduce_tiled(values, gather, seg_tiles, m2out,
+                                monoids=(channels, 0, 0),
+                                num_out_tiles=num_out_tiles, tm=tm, ts=ts)
 
+
+#: K1 launches so far, whatever the monoids (a plain count; callers may
+#: reset it to 0)
+segment_sum_tiled.launches = 0

@@ -45,6 +45,122 @@ def test_segment_sum_kernel_matches_plain(cuda, n, m, s, d):
             assert torch.equal(got.cpu(), ref)
 
 
+def _k1_rows(kind, rng):
+    """(gather, sorted segment ids, segments, headroom) of one K1 plan case."""
+    if kind == "long_run":  # one segment of 120,000 rows: longer than any block
+        seg = np.concatenate([np.full(120_000, 3), np.sort(rng.integers(4, 900, 30_000))])
+        return rng.integers(0, 2000, seg.size), seg, 900, 0.0
+    if kind == "empty":  # most segments and most output tiles empty
+        return rng.integers(0, 2000, 300), np.sort(rng.integers(0, 5000, 300)), 5000, 0.0
+    if kind == "large":  # 2^21+ plan rows: the kernel's large-plan block size
+        return (rng.integers(0, 100_000, 2_500_000),
+                np.sort(rng.integers(0, 200_000, 2_500_000)), 200_000, 0.3)
+    # all-pad tiles in every group ("headroom") or none ("mixed")
+    return (rng.integers(0, 2000, 5000), np.sort(rng.integers(0, 600, 5000)), 600,
+            1.0 if kind == "headroom" else 0.0)
+
+
+def _k1_check(got, plain, mass, n_sum, exact):
+    """Sum columns within 1e-5 of each segment's sum of |terms| (bitwise
+    when every partial sum is exact); min/max columns bitwise."""
+    if exact:
+        assert torch.equal(got, plain)
+    else:
+        assert bool(((got[:, :n_sum] - plain[:, :n_sum]).abs()
+                     <= 1e-5 * mass[:, :n_sum]).all())
+        assert torch.equal(got[:, n_sum:], plain[:, n_sum:])
+
+
+@pytest.mark.parametrize("kind,monoids", [
+    ("mixed", (1, 1, 1)), ("mixed", (0, 1, 0)), ("mixed", (0, 0, 2)),
+    ("headroom", (2, 1, 1)), ("long_run", (2, 1, 1)), ("long_run", (0, 0, 1)),
+    ("empty", (1, 1, 1)), ("mixed", (64, 33, 33)), ("large", (1, 0, 0)),
+    ("large", (1, 1, 1)),
+])
+def test_segment_reduce_kernel_matches_plain(cuda, kind, monoids):
+    from repro_torch.kernels.segment_reduce import ops
+    from repro_torch.kernels.segment_reduce.segment_reduce import (
+        segment_reduce_plain,
+        segment_reduce_tiled,
+        segment_sum_tiled,
+    )
+
+    rng = np.random.default_rng(sum(monoids) + len(kind))
+    gidx, seg, s, headroom = _k1_rows(kind, rng)
+    plan = ops.build_tile_plan(gidx.astype(np.int32), seg, s, headroom=headroom,
+                               torch_device=cuda)
+    args = (plan.gather_padded, plan.seg_tiles, plan.m2out)
+    kw = dict(num_out_tiles=plan.num_out_tiles, tm=plan.tm, ts=plan.ts)
+    c, n = sum(monoids), int(gidx.max()) + 1
+    for vals in (rng.integers(0, 100, (n, c)), rng.normal(size=(n, c))):
+        v = torch.from_numpy(vals.astype(np.float32)).to(cuda)
+        before = segment_sum_tiled.launches
+        got = segment_reduce_tiled(v, *args, monoids=monoids, **kw)
+        again = segment_reduce_tiled(v, *args, monoids=monoids, **kw)
+        torch.cuda.synchronize()
+        assert segment_sum_tiled.launches == before + 2
+        assert torch.equal(got, again)  # deterministic: no atomics
+        plain = segment_reduce_plain(v, plan.gather_padded, plan.seg_tiles,
+                                     monoids=monoids, num_out_tiles=plan.num_out_tiles,
+                                     ts=plan.ts)
+        mass = segment_reduce_plain(v.abs(), plan.gather_padded, plan.seg_tiles,
+                                    monoids=monoids, num_out_tiles=plan.num_out_tiles,
+                                    ts=plan.ts)
+        _k1_check(got, plain, mass, monoids[0], vals.dtype.kind == "i")
+        # every cell of an empty segment holds its monoid's identity
+        empty = torch.from_numpy(np.bincount(seg, minlength=got.shape[0]) == 0).to(cuda)
+        ident = torch.tensor([0.0] * monoids[0] + [float("inf")] * monoids[1]
+                             + [float("-inf")] * monoids[2], device=cuda)
+        assert torch.equal(got[empty], ident.expand(int(empty.sum()), c))
+
+
+def test_segment_reduce_kernel_propagates_nan(cuda):
+    from repro_torch.kernels.segment_reduce import ops
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_reduce_plain
+
+    rng = np.random.default_rng(3)
+    gidx, seg, s, _ = _k1_rows("long_run", rng)
+    vals = rng.integers(0, 100, (2000, 4)).astype(np.float32)
+    vals[rng.integers(0, 2000, 40), rng.integers(0, 4, 40)] = np.nan
+    cpu_plan = ops.build_tile_plan(gidx.astype(np.int32), seg, s, torch_device="cpu")
+    plan = ops.build_tile_plan(gidx.astype(np.int32), seg, s, torch_device=cuda)
+    got = ops.segment_reduce_multi(plan, torch.from_numpy(vals).to(cuda), (2, 1, 1))
+    # the oracle on the CPU, whose scatter_reduce amin/amax keep NaN
+    want = segment_reduce_plain(torch.from_numpy(vals), cpu_plan.gather_padded,
+                                cpu_plan.seg_tiles, monoids=(2, 1, 1),
+                                num_out_tiles=cpu_plan.num_out_tiles,
+                                ts=cpu_plan.ts)[:s]
+    assert bool(torch.isnan(want[:, 2:]).any())
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0, equal_nan=True)
+
+
+def test_session_run_makes_two_k1_launches(cuda):
+    """A plan without ELL layouts: every channel of run() and run_many()
+    rides one K1 launch per pass."""
+    from repro_torch.core import api
+    from repro_torch.graphs import generators as gen
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
+
+    g = gen.with_random_attrs(gen.barabasi_albert(400, 2, seed=7), seed=2)
+    aggs = ("sum", "count", "avg", "min", "max")
+    sess = api.Session(g, [api.QuerySpec(api.KHopWindow(2), a) for a in aggs],
+                       torch_device=cuda)
+    cpu = api.Session(g, [api.QuerySpec(api.KHopWindow(2), a) for a in aggs],
+                      torch_device="cpu")
+    (state,) = sess._states.values()
+    assert state.plan.p1_ell is None
+    before = segment_sum_tiled.launches
+    got = sess.run()
+    assert segment_sum_tiled.launches == before + 2
+    vb = np.random.default_rng(5).integers(0, 100, (8, g.n)).astype(np.float64)
+    many = sess.run_many(vb)
+    assert segment_sum_tiled.launches == before + 4
+    for a, x, y in zip(aggs, got, cpu.run()):
+        assert np.array_equal(x, y), a
+    for a, x, y in zip(aggs, many, cpu.run_many(vb)):
+        assert np.array_equal(x, y), a
+
+
 @pytest.mark.parametrize("n,deg,k", [(200, 4.0, 1), (300, 6.0, 2), (3000, 10.0, 2)])
 def test_bitset_expand_kernel_matches_plain(cuda, n, deg, k):
     from repro_torch.graphs.generators import erdos_renyi

@@ -104,6 +104,49 @@ def test_session_run_and_run_many_bitwise(name):
             assert np.array_equal(x[b], y)
 
 
+def test_no_ell_run_is_two_k1_calls_and_no_scatter(monkeypatch):
+    """Without ELL layouts every channel of run() and run_many() rides one
+    K1 call per pass; nothing outside K1 scatters."""
+    from repro_torch.kernels.segment_reduce import ops as p_ops
+
+    rs, ps = _pair("ba400_no_ell", 2)
+    assert _state(ps).plan.p1_ell is None
+    calls, scatters, inside = [], [], [False]
+    k1 = p_ops.segment_reduce_tiled
+
+    def counted_k1(values, *args, monoids, **kw):
+        calls.append((tuple(values.shape), tuple(monoids)))
+        inside[0] = True
+        try:
+            return k1(values, *args, monoids=monoids, **kw)
+        finally:
+            inside[0] = False
+
+    def spy(name):
+        real = getattr(torch.Tensor, name)
+
+        def scatter(self, *a, **kw):
+            if not inside[0]:
+                scatters.append(name)
+            return real(self, *a, **kw)
+        return scatter
+
+    monkeypatch.setattr(p_ops, "segment_reduce_tiled", counted_k1)
+    for name in ("scatter_reduce", "scatter_reduce_", "scatter", "scatter_",
+                 "scatter_add", "scatter_add_"):
+        monkeypatch.setattr(torch.Tensor, name, spy(name))
+    got = ps.run()
+    assert [m for _, m in calls] == [(1, 1, 1), (2, 1, 1)]
+    vb = np.random.default_rng(5).integers(0, 100, (8, ps.graph.n)).astype(np.float64)
+    many = ps.run_many(vb)
+    assert [(shape[1], m) for shape, m in calls[2:]] == [(24, (8, 8, 8)), (32, (16, 8, 8))]
+    assert scatters == []
+    for a, x, y in zip(AGGS, got, rs.run()):
+        assert np.array_equal(x, y), a
+    for a, x, y in zip(AGGS, many, rs.run_many(vb)):
+        assert np.array_equal(x, y), a
+
+
 def test_session_run_normal_values_allclose():
     rs, ps = _pair("er300", 2, integer=False)
     for a, x, y in zip(AGGS, ps.run(), rs.run()):
