@@ -10,22 +10,22 @@ Phases, one JSON object per line:
 2. ``build``   — compiles every kernel of ``src/repro_torch/csrc`` with nvcc
                  for sm_90a (five libraries, one nvcc per source, all started
                  together); registers and spills from each ptxas log (none
-                 allowed in K1's).
+                 allowed in K1's or K2's).
 3. ``index``   — the graph, the host EMC DBIndex build and the device plan,
                  built by constructing the ``Session``.
-4. ``kernel:segment_sum`` / ``kernel:bitset_expand`` — each kernel against
-   its plain PyTorch version on the card at the main path's shapes
-   (bitwise on integer values; on normal float32 values within 1e-5 of
-   each segment's sum of |terms|, min/max bitwise; bitwise across two
-   launches), and timed with CUDA events around single calls (the median;
-   a short call's time holds the host's enqueue, which the card waits
-   for): kernel, plain version, one PyTorch library call, and the bound.
-   K1 in two forms: sum-only (C = 1 and 2, the shapes of earlier runs) and
-   the main path's (C = 3 and 4: sum, count, min, max), which also checks
-   NaN and the identity of empty segments and times the masked
-   ``scatter_reduce`` route K1 replaced.  A form's ``ms`` per ``run()`` is
-   its two passes' times added, as earlier runs timed K1; beside it, the
-   two passes called back to back as ``run()`` calls them.
+4. ``kernel:segment_sum`` — K1 against its plain PyTorch version on the
+   card at the main path's shapes (bitwise on integer values; on normal
+   float32 values within 1e-5 of each segment's sum of |terms|, min/max
+   bitwise; bitwise across two launches), and timed with CUDA events
+   around single calls (the median; a short call's time holds the host's
+   enqueue, which the card waits for): kernel, plain version, one PyTorch
+   library call, and the bound.  K1 in two forms: sum-only (C = 1 and 2,
+   the shapes of earlier runs) and the main path's (C = 3 and 4: sum,
+   count, min, max), which also checks NaN and the identity of empty
+   segments and times the masked ``scatter_reduce`` route K1 replaced.  A
+   form's ``ms`` per ``run()`` is its two passes' times added, as earlier
+   runs timed K1; beside it, the two passes called back to back as
+   ``run()`` calls them.
 5. ``session`` — the port's main path: ``Session.run``, ``run_many`` (B=8)
    and a stream of ``UpdateBatch``es with phase 2 deferred, then one batch
    under the default ``StalenessPolicy`` (which reorganizes: a full EMC
@@ -33,11 +33,15 @@ Phases, one JSON object per line:
    against the session's own host index and against the set-evaluation
    oracle; the kernels' launch counts are reset just before and read just
    after (K1: 2 per ``run()`` and per ``run_many()``); ``run_many`` is also
-   timed warm, beside eight warm ``run()``s of its rows.
+   timed warm, beside eight warm ``run()``s of its rows.  Then the
+   device-BFS leg of one more batch's ``update()``, piece by piece: the
+   expand plan's build and upload, the seeds' write, one K2 hop, the mask's
+   copy back.
 6. ``profile`` — one more ``update()``, ``run()`` and ``run_many()`` under
    ``torch.profiler``: device time by kernel and the device's idle share,
-   K1's device time by launch; the ``run()`` and the ``run_many()`` each
-   run K1 twice and no ``scatter`` kernel.
+   K1's and K2's device time by launch; the ``update()`` runs K2 once, the
+   ``run()`` and the ``run_many()`` each run K1 twice and no ``scatter``
+   kernel.
 7. ``kernel:flash_attention`` — K3's tensor-core route (bf16, D 64;
    ``csrc/flash_attention_sm90.cu``): no spills and setmaxnreg honoured in
    its ptxas log, HGMMA in its SASS (``cuobjdump -sass``); then against
@@ -62,7 +66,22 @@ Phases, one JSON object per line:
     kernel on 512 and 262,144 id rows over the whole int32 range; K4's count
     reset just before and read just after (one per forward); each result
     against the plain forward, a small batch against float64 NumPy.
-11. ``kernels`` — one line per the repo's reporting contract; then the card
+11. ``kernel:bitset_expand`` — K2 (last, so the 2 M-vertex graph of its
+    shape (c) is not in the process while the paths above are timed) at
+    three shapes, words and occupancy masks bitwise against its
+    plain version: (a) one hop from one batch's endpoints (what every
+    ``update()`` runs), (b) hop 2 from 4096 seeds at n = 100k, (c) the same
+    on ER n = 2,000,000; each timed per call as K1 is and on the card
+    (events around back-to-back launches of the library's entry point: the
+    wrapper's host time exceeds the kernel's at n = 100k), with its input's
+    nonzero shares, the plain version, ``sparse.mm`` at (a) and (b), the
+    mask pre-pass, a memset of the output, the wrapper's host time alone
+    (its entry point stubbed), its bound (the bytes the masked design must
+    move) and the dense bound of the first K2 design.  (b)'s seeds come
+    from the run's generator before phase 5, as the first K2 phase drew
+    them; the K2 phase and phase 5's BFS leg draw from a generator of their
+    own, so neither shifts a draw of the main path.
+12. ``kernels`` — one line per the repo's reporting contract; then the card
     line from ``nvidia-smi``; then the ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero; without CUDA it
@@ -121,6 +140,23 @@ def time_ms(fn, dev, reps: int) -> float:
         pairs.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def back_to_back_ms(fn, dev, reps: int) -> float:
+    """Milliseconds per call of ``reps`` calls of ``fn()`` issued back to
+    back between two CUDA events (after one warm-up call): the card's rate
+    when the host's enqueue runs ahead of it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize(dev)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize(dev)
+    return a.elapsed_time(b) / reps
 
 
 def nbytes(*ts) -> int:
@@ -293,71 +329,193 @@ def kernel_segment_sum(plan, vals, dev, reps, rng):
     return out
 
 
-def kernel_bitset_expand(g, dev, reps, rng):
-    """K2: ``khop_reach`` from 4096 seeds, 2 hops, over the whole graph's
-    symmetrized reverse edges (the update BFS's plan at full size)."""
-    import numpy as np
+# K2 at n = 2,000,000 (ER degree 10, undirected: ~20 M symmetrized edges),
+# the smallest graph of the paper's Fig. 11
+K2_PAPER_N = 2_000_000
+
+
+def popcount(t):
+    """Set bits of each int32 word, as int64 (SWAR, no large temporaries)."""
+    v = t.long() & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def _k2_shape(name, plan, x, xm, dev, reps, library=True):
+    """K2 on one input ``x`` (with its occupancy mask ``xm``): words and
+    masks bit for bit against the plain version on the card; timed beside
+    it, the library call (where timed), the wrapper's host time and both
+    bounds."""
     import torch
 
+    from repro_torch.kernels.bitset_expand import bitset_expand as k2_lib
     from repro_torch.kernels.bitset_expand.bitset_expand import (
         bitset_expand_plain,
         bitset_expand_tiled,
-    )
-    from repro_torch.kernels.bitset_expand.ops import (
-        bitset_expand,
-        build_expand_plan,
-        khop_reach,
-        seed_bitsets,
+        bitset_mask,
     )
 
-    rg = g.reverse_view()
-    src = np.concatenate([rg.src, rg.dst])
-    dst = np.concatenate([rg.dst, rg.src])
-    order = np.argsort(dst, kind="stable")
-    plan = build_expand_plan(src[order], dst[order], g.n, torch_device=dev)
-    seeds = np.sort(rng.choice(g.n, min(4096, g.n), replace=False))
-    r0 = torch.from_numpy(seed_bitsets(g.n, seeds)).to(dev)
-    hop1 = bitset_expand(plan, r0)
-    reach = khop_reach(plan, g.n, seeds, 2)
-    again = khop_reach(plan, g.n, seeds, 2)
-    p1 = bitset_expand_plain(r0, plan.gather_padded, plan.seg_tiles)
-    p2 = bitset_expand_plain(p1, plan.gather_padded, plan.seg_tiles)
-    err = max(int(((a.long() & 0xFFFFFFFF) - (b.long() & 0xFFFFFFFF)).abs().max())
-              for a, b in ((hop1, p1), (reach, p2)))
-    check(err == 0, f"K2 differs from its plain version by {err} in a word")
-    check(torch.equal(reach, again), "K2: two runs differ")
-    # the library yardstick: one sparse product (A + I) @ membership, whose
-    # non-zeros are the next hop's bits
-    n, words = hop1.shape
-    a_rows = torch.from_numpy(np.concatenate([dst[order], np.arange(g.n)])).to(dev)
-    a_cols = torch.from_numpy(np.concatenate([src[order], np.arange(g.n)])).to(dev)
-    a = torch.sparse_coo_tensor(torch.stack([a_rows, a_cols]),
-                                torch.ones(a_rows.numel(), device=dev),
-                                (g.n, g.n)).coalesce().to_sparse_csr()
-    shifts = torch.arange(32, device=dev)
-    x = ((hop1.long()[:, :, None] >> shifts) & 1).reshape(n, words * 32).float()
-    y = torch.sparse.mm(a, x)
-    packed = ((y > 0).long().reshape(n, words, 32) << shifts).sum(dim=2)
-    check(torch.equal(packed, reach.long() & 0xFFFFFFFF),
-          "K2: library call disagrees")
-    args = (plan.gather_padded, plan.seg_tiles, plan.m2out)
+    args = (plan.gather_padded, plan.seg_tiles, plan.row_ptr, plan.pad_before)
     kw = dict(num_out_tiles=plan.num_out_tiles, tm=plan.tm, ts=plan.ts)
-    valid = int((plan.seg_tiles >= 0).sum())
-    # least bytes: every row of reach (each is its own row's base) and of
-    # the output, each edge's source index, one run boundary per row, m2out
-    moved = nbytes(hop1, reach, plan.m2out) + valid * 4 + (n + 1) * 4
-    b, by = bound_ms(moved, valid * words)
-    out = {
-        "max_abs_err": err,
-        "edges": valid, "words": words, "rows": n,
-        "ms": time_ms(lambda: bitset_expand_tiled(hop1, *args, **kw), dev, reps),
+
+    def kernel():
+        return bitset_expand_tiled(x, *args, mask=xm, **kw)
+
+    (out, om), (again, am) = kernel(), kernel()
+    p, pm = bitset_expand_plain(x, plan.gather_padded, plan.seg_tiles)
+    torch.cuda.synchronize(dev)
+    err = int(((out.long() & 0xFFFFFFFF) - (p.long() & 0xFFFFFFFF)).abs().max())
+    check(err == 0, f"K2 {name}: differs from its plain version by {err} in a word")
+    check(torch.equal(om, pm), f"K2 {name}: its mask differs from the plain version's")
+    check(torch.equal(out, again) and torch.equal(om, am), f"K2 {name}: two launches differ")
+    check(torch.equal(bitset_mask(out), om), f"K2 {name}: the pre-pass mask differs")
+    n, words = x.shape
+    groups = words // 4
+    per_row = popcount(xm).sum(dim=1)  # nonzero groups a row
+    nz_groups = int(per_row.sum())
+    ok = plan.seg_tiles.reshape(-1) >= 0
+    src, dst = plan.gather_padded[ok], plan.seg_tiles.reshape(-1)[ok]
+    edge_groups = int(per_row[src.long()].sum())  # groups the edges OR in
+    valid = int(src.numel())
+    # the first K2 design's dense bound, kept for comparison: every row of
+    # reach (each is its own row's base) and of the output, each edge's
+    # source index, one run boundary per row, m2out
+    dense, _ = bound_ms(nbytes(x, out, plan.m2out) + valid * 4 + (n + 1) * 4, valid * words)
+    # what the masked design must move: the output and its mask written
+    # once, the input mask read once, each edge's source, the run offsets,
+    # and the nonzero 16-byte groups of reach; its operations, one OR a word
+    # of each group an edge or a base row brings in
+    occ_bytes = (nbytes(out, om, xm, plan.row_ptr, plan.pad_before) + valid * 4
+                 + nz_groups * 16)
+    b, by = bound_ms(occ_bytes, (edge_groups + nz_groups) * 4)
+    slow = max(3, reps // 4) if n > 500_000 else reps
+    ms = time_ms(kernel, dev, slow)
+    # the kernel's time on the card: events around back-to-back launches of
+    # the library's entry point into fixed outputs, without the wrapper's
+    # host time (which exceeds the kernel's at n = 100k)
+    raw = k2_lib._lib("bitset_expand_u32")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [t.data_ptr() for t in (x, xm, plan.gather_padded, plan.row_ptr, plan.pad_before)]
+
+    def launch():
+        check(raw(*ptrs, n, x.shape[1], plan.ts, again.data_ptr(), am.data_ptr(),
+                  stream) == 0, f"K2 {name}: launch failed")
+
+    out_d = {
+        "rows": n, "words": words, "edges": valid,
+        "input_rows_nonzero_share": float((xm != 0).any(dim=1).float().mean()),
+        "input_groups_nonzero_share": nz_groups / (n * groups),
+        "edge_groups_gathered": edge_groups,
+        "output_rows_nonzero": int((om != 0).any(dim=1).sum()),
+        "max_abs_err": err, "ms": ms, "device_ms": back_to_back_ms(launch, dev, 4 * slow),
         "plain_ms": time_ms(lambda: bitset_expand_plain(
-            hop1, plan.gather_padded, plan.seg_tiles), dev, reps),
-        "library_ms": time_ms(lambda: torch.sparse.mm(a, x), dev, reps),
-        "bound_ms": b, "bound_by": by,
-        "reached_2hop": int((reach != 0).any(dim=1).sum()),
+            x, plan.gather_padded, plan.seg_tiles), dev, slow),
+        "bound_ms": b, "bound_by": by, "bound_bytes": occ_bytes, "bound_dense_ms": dense,
+        # a call without a mask adds the pre-pass, which reads all of reach
+        "mask_prepass_ms": time_ms(lambda: bitset_mask(x), dev, slow),
+        "mask_prepass_bound_ms": bound_ms(nbytes(x, xm), 0)[0],
+        # the card writing the output's bytes alone (a memset), for scale
+        "memset_out_ms": back_to_back_ms(lambda: again.zero_(), dev, 4 * slow),
     }
+    # the wrapper's host time alone, by the method of ``ms``: the same calls
+    # with the library's entry point replaced by one that returns at once
+    # (the launch count is restored: nothing was launched)
+    real_lib, count = k2_lib._lib, bitset_expand_tiled.launches
+    k2_lib._lib = lambda _name: (lambda *_a: 0)
+    try:
+        out_d["wrapper_host_ms"] = time_ms(kernel, dev, slow)
+    finally:
+        k2_lib._lib, bitset_expand_tiled.launches = real_lib, count
+    if library:
+        # one sparse product (A + I) @ membership, whose non-zeros are the
+        # next hop's bits (dense [n, 32 W] float32: 32 GB at n = 2 M, so it
+        # is timed at n = 100,000 only)
+        eye = torch.arange(n, device=dev)
+        a = torch.sparse_coo_tensor(
+            torch.stack([torch.cat([dst.long(), eye]), torch.cat([src.long(), eye])]),
+            torch.ones(valid + n, device=dev), (n, n)).coalesce().to_sparse_csr()
+        shifts = torch.arange(32, device=dev)
+        dense_x = ((x.long()[:, :, None] >> shifts) & 1).reshape(n, words * 32).float()
+        y = torch.sparse.mm(a, dense_x)
+        packed = ((y > 0).long().reshape(n, words, 32) << shifts).sum(dim=2)
+        check(torch.equal(packed, out.long() & 0xFFFFFFFF), f"K2 {name}: library call disagrees")
+        out_d["library_ms"] = time_ms(lambda: torch.sparse.mm(a, dense_x), dev, slow)
+        del a, dense_x, y, packed
+    else:
+        out_d["library_ms"] = None
+        out_d["library"] = ("not timed: sparse.mm needs the membership as a dense "
+                            f"[n, {32 * words}] float32 matrix, {n * words * 128 / 1e9:.1f} GB")
+    del out, om, again, am, p, pm
+    return out_d
+
+
+def kernel_bitset_expand(g, args, dev, rng, b_seeds):
+    """K2 at three shapes, each checked bit for bit (words and masks)
+    against its plain version: (a) the main path's, one hop from the
+    endpoints of one ``make_batch`` batch over the session's graph, what
+    every ``update()`` runs; (b) hop 2 from the 4096 ``b_seeds`` on the same
+    plan, the shape the first K2 design was timed at; (c) hop 2 from 4096
+    seeds on ER n = 2,000,000, degree 10, undirected."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.updates import _khop_seeds, _reverse_expand_plan
+    from repro_torch.graphs.generators import erdos_renyi
+    from repro_torch.kernels.bitset_expand.ops import bitset_expand, khop_reach_masked
+
+    # the update BFS's expand plan over the reverse edges, as update() builds it
+    plan = _reverse_expand_plan(g.reverse_view(), dev)
+    seeds = np.unique(_khop_seeds(g, make_batch(g, args, rng)))
+    out = {"main_path_seeds": int(seeds.size), "per_shape": {}}
+    r0, m0 = khop_reach_masked(plan, g.n, seeds, 0)
+    out["per_shape"]["a_main_path"] = _k2_shape("(a)", plan, r0, m0, dev, args.reps)
+    h1, hm = bitset_expand(plan, *khop_reach_masked(plan, g.n, b_seeds, 0))
+    out["per_shape"]["b_hop2_4096"] = _k2_shape("(b)", plan, h1, hm, dev, args.reps)
+    del plan, r0, m0, h1, hm
+    t = time.perf_counter()
+    big = erdos_renyi(K2_PAPER_N, args.degree, directed=False, seed=args.seed + 2)
+    plan = _reverse_expand_plan(big.reverse_view(), dev)
+    torch.cuda.synchronize(dev)
+    out["paper_graph_and_plan_s"] = time.perf_counter() - t
+    seeds = np.sort(rng.choice(big.n, 4096, replace=False))
+    h1, hm = bitset_expand(plan, *khop_reach_masked(plan, big.n, seeds, 0))
+    out["per_shape"]["c_paper_2m"] = _k2_shape("(c)", plan, h1, hm, dev, args.reps,
+                                               library=False)
+    del plan, h1, hm, big
+    torch.cuda.empty_cache()
     return out
+
+
+def bfs_leg(sess, args, rng, dev, reps=5):
+    """The device-BFS leg of one ``update()`` at the main path's shape,
+    timed piece by piece (host clock, each piece ending in a synchronize;
+    the median of ``reps``): the expand plan laid out on the host and
+    uploaded (``update()`` rebuilds it every batch), the seeds' words and
+    masks written on the card, one K2 hop, the final mask's copy back; and
+    the whole leg as ``update()`` calls it."""
+    import numpy as np
+
+    from repro_torch.core import updates as U
+    from repro_torch.kernels.bitset_expand.ops import bitset_expand, khop_reach_masked
+
+    batch = make_batch(sess.graph, args, rng)
+    g_new = U.apply_batch(sess.graph, batch)
+    rg = g_new.reverse_view()
+    seeds = np.unique(U._khop_seeds(g_new, batch))
+    plan = U._reverse_expand_plan(rg, dev)
+    r, m = khop_reach_masked(plan, rg.n, seeds, 0)
+    h, hm = bitset_expand(plan, r, m)
+    return {
+        "seeds": int(seeds.size),
+        "plan_build_upload_ms": wall_ms(lambda: U._reverse_expand_plan(rg, dev), dev, reps),
+        "seed_write_ms": wall_ms(lambda: khop_reach_masked(plan, rg.n, seeds, 0), dev, reps),
+        "k2_ms": wall_ms(lambda: bitset_expand(plan, r, m), dev, reps),
+        "mask_copy_back_ms": wall_ms(lambda: (hm != 0).any(dim=1).cpu().numpy(), dev, reps),
+        "leg_ms": wall_ms(lambda: U._device_khop_reach_any(rg, 1, seeds, dev), dev, reps),
+        "plan_bytes": plan.plan_nbytes(),
+    }
 
 
 # ---------------------------------------------------------------------- #
@@ -444,15 +602,22 @@ def make_batch(g, args, rng):
 
 def profile_phase(sess, state, args, rng, dev, unprofiled_ms):
     """One more ``update()``, ``run()`` and ``run_many()`` under
-    ``torch.profiler`` (see :func:`device_profile`); the profiled ``run()``
-    and two rows of the ``run_many()`` are checked against the host index,
-    and each ran K1 twice and no ``scatter`` kernel."""
+    ``torch.profiler`` (see :func:`device_profile`); the profiled
+    ``update()`` ran K2 once (by its counter; the trace gives its device
+    time at the main path's shape), the profiled ``run()`` and two rows of
+    the ``run_many()`` are checked against the host index, and each ran K1
+    twice and no ``scatter`` kernel."""
     import numpy as np
+
+    from repro_torch.kernels.bitset_expand.bitset_expand import bitset_expand_tiled
 
     out = {}
     batch = make_batch(sess.graph, args, rng)
+    before = bitset_expand_tiled.launches
     out["update"] = device_profile(lambda: sess.update(batch), dev,
-                                   unprofiled_ms["update"])
+                                   unprofiled_ms["update"], match=("bitset_expand_kernel",))
+    check(bitset_expand_tiled.launches == before + 1,
+          f"the profiled update() made {bitset_expand_tiled.launches - before} K2 launches, not 1")
     res = []
     out["run"] = device_profile(lambda: res.append(sess.run()), dev,
                                 unprofiled_ms["run"],
@@ -990,10 +1155,11 @@ def run(args, dev) -> None:
     ptxas = {name: build.ptxas_report(name) for name in secs}
     emit({"phase": "build", "seconds": time.perf_counter() - t,
           "per_kernel_s": secs, "ptxas": ptxas})
-    k1_funcs = ptxas["segment_sum"]["functions"]
-    check(bool(k1_funcs) and all(f.get("spill_stores") == 0 and f.get("spill_loads") == 0
-                                 for f in k1_funcs.values()),
-          f"K1's ptxas report shows spills: {k1_funcs}")
+    for name, what in (("segment_sum", "K1"), ("bitset_expand", "K2")):
+        funcs = ptxas[name]["functions"]
+        check(bool(funcs) and all(f.get("spill_stores") == 0 and f.get("spill_loads") == 0
+                                  for f in funcs.values()),
+              f"{what}'s ptxas report shows spills: {funcs}")
 
     t = time.perf_counter()
     g = with_random_attrs(erdos_renyi(args.n, args.degree, directed=False,
@@ -1015,15 +1181,19 @@ def run(args, dev) -> None:
     k1_forms = kernel_segment_sum(plan, g.attrs["val"], dev, args.reps, rng)
     emit({"phase": "kernel:segment_sum", "check": "ok", **k1_forms})
     k1 = k1_forms["sum"]
-    k2 = kernel_bitset_expand(g, dev, args.reps, rng)
-    emit({"phase": "kernel:bitset_expand", "check": "ok", **k2})
-
+    # K2's shape (b) seeds, drawn where the first K2 phase drew them, so that
+    # the main path's draws below match that version's; K2's other phases
+    # draw from a generator of their own and shift no draw of the main path
+    b_seeds = np.sort(rng.choice(g.n, min(4096, g.n), replace=False))
+    k2_rng = np.random.default_rng(args.seed + 3)
     main = drive_main_path(sess, state, args, rng)
+    main["device_bfs_leg"] = bfs_leg(sess, args, k2_rng, dev)
     emit({"phase": "session", **main})
-    emit({"phase": "profile", **profile_phase(
-        sess, state, args, rng, dev,
-        {"run": main["run_ms"], "run_many": main["run_many_ms"],
-         "update": main["update_ms"]})})
+    prof = profile_phase(sess, state, args, rng, dev,
+                         {"run": main["run_ms"], "run_many": main["run_many_ms"],
+                          "update": main["update_ms"]})
+    emit({"phase": "profile", **prof})
+    k2_traced = prof["update"]["matched"]["bitset_expand_kernel"]
     launches = main["launches"]
     check(launches["segment_sum"] > 0, "the main path launched no K1")
     check(launches["bitset_expand"] > 0, "the main path launched no K2")
@@ -1040,6 +1210,11 @@ def run(args, dev) -> None:
     emit({"phase": "serve_lm", **lm})
     fm, launches["fm_interaction"] = serve_fm(args, dev)
     emit({"phase": "serve_fm", **fm})
+    # last: the 2 M-vertex graph of its shape (c) would otherwise sit in
+    # this process while the end-to-end paths above are timed
+    k2_shapes = kernel_bitset_expand(g, args, dev, k2_rng, b_seeds)
+    emit({"phase": "kernel:bitset_expand", "check": "ok", **k2_shapes})
+    k2 = k2_shapes["per_shape"]["a_main_path"]
     k3_row, k4_row = k3["serve_prefill"], k4["serve_bulk"]
 
     rows = [
@@ -1059,7 +1234,17 @@ def run(args, dev) -> None:
          "replaces": "src/repro/kernels/bitset_expand/bitset_expand.py:81",
          "launches": launches["bitset_expand"], "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
-         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"], "check": "ok"},
+         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],
+         "bound_dense_ms": k2["bound_dense_ms"], "device_ms": k2["device_ms"],
+         "profiled_update_device_ms": (k2_traced["device_ms"] if k2_traced["launches"]
+                                       else "not measured"),
+         "per_shape": {name: {key: sh.get(key) for key in
+                              ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+                               "bound_dense_ms", "wrapper_host_ms", "mask_prepass_ms",
+                               "mask_prepass_bound_ms", "memset_out_ms",
+                               "input_rows_nonzero_share", "input_groups_nonzero_share")}
+                       for name, sh in k2_shapes["per_shape"].items()},
+         "check": "ok"},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:76",

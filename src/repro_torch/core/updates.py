@@ -243,27 +243,37 @@ def delete_edge(g: Graph, s: int, t: int) -> Graph:
 DEVICE_BFS_MIN_SEEDS = 4096
 
 
+def _reverse_expand_plan(g_rev: Graph, torch_device="cuda"):
+    """The ``bitset_expand`` plan of ``g_rev``'s edges (symmetrized when
+    undirected, like the host bitset BFS), sorted by destination, laid out
+    on the host and uploaded to ``torch_device``."""
+    from repro_torch.kernels.bitset_expand.ops import build_expand_plan
+
+    if g_rev.directed:
+        src, dst = g_rev.src, g_rev.dst
+    else:
+        src = np.concatenate([g_rev.src, g_rev.dst])
+        dst = np.concatenate([g_rev.dst, g_rev.src])
+    order = np.argsort(dst, kind="stable")
+    return build_expand_plan(src[order], dst[order], g_rev.n,
+                             torch_device=torch_device)
+
+
 def _device_khop_reach_any(g_rev: Graph, k: int, seeds: Array,
                            torch_device="cuda") -> Array:
     """Device mirror of the reverse multi-source BFS: one ``bitset_expand``
     tile plan over the reverse edges, then k expansion hops (K2 launches)
-    per 4096-seed chunk.  Returns the bool [n] mask of vertices reaching
-    any seed."""
-    from repro_torch.kernels.bitset_expand.ops import build_expand_plan, khop_reach
+    per 4096-seed chunk, each handing its occupancy mask to the next.
+    Returns the bool [n] mask of vertices reaching any seed: a row is
+    reached iff its final mask is nonzero, so only the masks come back to
+    the host."""
+    from repro_torch.kernels.bitset_expand.ops import khop_reach_masked
 
-    if g_rev.directed:
-        src, dst = g_rev.src, g_rev.dst
-    else:  # symmetrize, like the host bitset BFS
-        src = np.concatenate([g_rev.src, g_rev.dst])
-        dst = np.concatenate([g_rev.dst, g_rev.src])
-    order = np.argsort(dst, kind="stable")
-    plan = build_expand_plan(src[order], dst[order], g_rev.n,
-                             torch_device=torch_device)
+    plan = _reverse_expand_plan(g_rev, torch_device)
     mask = np.zeros(g_rev.n, dtype=bool)
     for lo in range(0, seeds.size, 4096):
-        chunk = seeds[lo : lo + 4096]
-        reach = khop_reach(plan, g_rev.n, chunk, k)
-        mask |= (reach != 0).any(dim=1).cpu().numpy()
+        _, occ = khop_reach_masked(plan, g_rev.n, seeds[lo : lo + 4096], k)
+        mask |= (occ != 0).any(dim=1).cpu().numpy()
     return mask
 
 

@@ -161,20 +161,115 @@ def test_session_run_makes_two_k1_launches(cuda):
         assert np.array_equal(x, y), a
 
 
-@pytest.mark.parametrize("n,deg,k", [(200, 4.0, 1), (300, 6.0, 2), (3000, 10.0, 2)])
-def test_bitset_expand_kernel_matches_plain(cuda, n, deg, k):
+def _k2_edges(kind, n):
+    """dst-sorted (src, dst): a symmetrized undirected ER graph of degree
+    4 (``er``), 6 (``er6``) or 10 (``er10``), or for ``no_in_edges`` a
+    directed one whose vertices [n/3, 2n/3) and every multiple of 7 have no
+    in-edges."""
     from repro_torch.graphs.generators import erdos_renyi
+
+    if kind == "no_in_edges":
+        g = erdos_renyi(n, 5.0, directed=True, seed=n)
+        keep = ~(((g.dst >= n // 3) & (g.dst < 2 * n // 3)) | (g.dst % 7 == 0))
+        src, dst = g.src[keep], g.dst[keep]
+    else:
+        g = erdos_renyi(n, {"er": 4.0, "er6": 6.0, "er10": 10.0}[kind], seed=n)
+        src = np.concatenate([g.src, g.dst])
+        dst = np.concatenate([g.dst, g.src])
+    order = np.argsort(dst, kind="stable")
+    return src[order], dst[order]
+
+
+# (kind, n, seeds, k, W): the CPU tests' cases (seeds 1, 250, 4096, none;
+# destinations with no in-edges; n mostly not a multiple of 256), the three
+# whole-graph sweeps this test first held (degree 4, 6 and 10), and W = 4, 8,
+# 132
+K2_CUDA_CASES = [("er", 300, 1, 1, 128), ("er", 300, 1, 3, 128), ("er", 1000, 250, 3, 128),
+                 ("er", 4300, 4096, 2, 128), ("er", 700, 0, 2, 128),
+                 ("no_in_edges", 900, 250, 3, 128), ("no_in_edges", 512, 64, 2, 128),
+                 ("er", 200, 200, 1, 128), ("er6", 300, 300, 2, 128),
+                 ("er10", 3000, 3000, 2, 128), ("er", 777, 128, 2, 4),
+                 ("er", 777, 256, 2, 8), ("er", 777, 777, 2, 132),
+                 ("er10", 50_000, 4096, 3, 128)]
+
+
+@pytest.mark.parametrize("kind,n,n_seeds,k,words", K2_CUDA_CASES)
+def test_bitset_expand_kernel_matches_plain(cuda, monkeypatch, kind, n, n_seeds, k, words):
+    """K2 hop by hop against its plain version: words and masks bit for
+    bit, one launch a hop, bitwise across two sweeps; the plain version is
+    never reached with CUDA tensors."""
+    from repro_torch.kernels.bitset_expand import bitset_expand as k2
     from repro_torch.kernels.bitset_expand import ops
 
-    g = erdos_renyi(n, deg, seed=n)
-    src = np.concatenate([g.src, g.dst])
-    dst = np.concatenate([g.dst, g.src])
-    order = np.argsort(dst, kind="stable")
-    sources = np.arange(min(n, 4096), dtype=np.int32)
-    plans = [ops.build_expand_plan(src[order], dst[order], n, torch_device=dev)
-             for dev in ("cpu", cuda)]
-    ref, got = (ops.khop_reach(p, n, sources, k) for p in plans)
-    assert torch.equal(got.cpu(), ref)
+    es, ed = _k2_edges(kind, n)
+    seeds = np.sort(np.random.default_rng(n + k).choice(n, n_seeds, replace=False))
+    plans = {dev: ops.build_expand_plan(es, ed, n, torch_device=dev) for dev in ("cpu", cuda)}
+    want = [ops.khop_reach_masked(plans["cpu"], n, seeds, hops, words) for hops in range(k + 1)]
+    monkeypatch.setattr(k2, "bitset_expand_plain", _fail)
+    monkeypatch.setattr(k2, "bitset_mask_plain", _fail)
+    before, masks_before = k2.bitset_expand_tiled.launches, k2.bitset_mask.launches
+    r, m = ops.khop_reach_masked(plans[cuda], n, seeds, 0, words)
+    for hops in range(1, k + 1):
+        r, m = ops.bitset_expand(plans[cuda], r, m)
+        torch.cuda.synchronize()
+        assert torch.equal(r.cpu(), want[hops][0]), hops
+        assert torch.equal(m.cpu(), want[hops][1]), hops
+    assert k2.bitset_expand_tiled.launches == before + k
+    assert k2.bitset_mask.launches == masks_before
+    again, m2 = ops.khop_reach_masked(plans[cuda], n, seeds, k, words)
+    assert torch.equal(again, r) and torch.equal(m2, m)
+
+
+@pytest.mark.parametrize("words", [4, 8, 128, 132])
+def test_bitset_expand_without_mask_runs_the_prepass(cuda, monkeypatch, words):
+    """A call without a mask launches the pre-pass kernel once, then K2:
+    the mask and the words equal the plain version's."""
+    from repro_torch.kernels.bitset_expand import bitset_expand as k2
+    from repro_torch.kernels.bitset_expand import ops
+
+    n = 5000
+    es, ed = _k2_edges("er", n)
+    rng = np.random.default_rng(words)
+    w = rng.integers(-(2**31), 2**31, (n, words)).astype(np.int32)
+    w[rng.random(w.shape) < 0.97] = 0
+    r = torch.from_numpy(w)
+    want_mask = k2.bitset_mask_plain(r)
+    want = ops.bitset_expand(ops.build_expand_plan(es, ed, n, torch_device="cpu"), r)
+    plan = ops.build_expand_plan(es, ed, n, torch_device=cuda)
+    monkeypatch.setattr(k2, "bitset_expand_plain", _fail)
+    monkeypatch.setattr(k2, "bitset_mask_plain", _fail)
+    before, masks_before = k2.bitset_expand_tiled.launches, k2.bitset_mask.launches
+    assert torch.equal(k2.bitset_mask(r.to(cuda)).cpu(), want_mask)
+    got, got_mask = ops.bitset_expand(plan, r.to(cuda))
+    torch.cuda.synchronize()
+    assert k2.bitset_mask.launches == masks_before + 2
+    assert k2.bitset_expand_tiled.launches == before + 1
+    assert torch.equal(got.cpu(), want[0]) and torch.equal(got_mask.cpu(), want[1])
+
+
+def test_bitset_expand_build_has_no_spills_and_no_fallback(cuda, monkeypatch):
+    """ptxas reports 0 spill bytes for both K2 functions; a library that
+    cannot be loaded raises for CUDA tensors instead of falling back."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.bitset_expand import bitset_expand as k2
+    from repro_torch.kernels.bitset_expand import ops
+
+    build.build(("bitset_expand",))
+    funcs = build.ptxas_report("bitset_expand")["functions"]
+    assert len(funcs) == 2, funcs
+    for fn, rep in funcs.items():
+        assert rep.get("spill_stores") == 0 and rep.get("spill_loads") == 0, (fn, rep)
+    es, ed = _k2_edges("er", 300)
+    plan = ops.build_expand_plan(es, ed, 300, torch_device=cuda)
+    r = torch.zeros((300, 128), dtype=torch.int32, device=cuda)
+
+    def missing(name):
+        raise RuntimeError(f"no library {name}")
+
+    monkeypatch.setattr(k2._build, "load", missing)
+    monkeypatch.setattr(k2, "bitset_expand_plain", _fail)
+    with pytest.raises(RuntimeError, match="no library"):
+        ops.bitset_expand(plan, r, torch.zeros((300, 1), dtype=torch.int32, device=cuda))
 
 
 def _fail(*_a, **_k):
