@@ -2,15 +2,16 @@
 """Drive the PyTorch/CUDA port's paths on one GPU and check them.
 
     python3 chip_smoke.py    # full width: ER n=100k, degree 10, KHop(2);
+                             # the topological window on a 60k DAG;
                              # qwen3-0.6b serving; the Criteo-shaped FM
 
 Phases, one JSON object per line:
 
 1. ``env``     — the card (``nvidia-smi`` name and power limit), torch, CUDA.
 2. ``build``   — compiles every kernel of ``src/repro_torch/csrc`` with nvcc
-                 for sm_90a (five libraries, one nvcc per source, all started
+                 for sm_90a (six libraries, one nvcc per source, all started
                  together); registers and spills from each ptxas log (none
-                 allowed in K1's or K2's).
+                 allowed in K1's, K2's or the scan's).
 3. ``index``   — the graph, the host EMC DBIndex build and the device plan,
                  built by constructing the ``Session``.
 4. ``kernel:segment_sum`` — K1 against its plain PyTorch version on the
@@ -42,31 +43,56 @@ Phases, one JSON object per line:
    K1's and K2's device time by launch; the ``update()`` runs K2 once, the
    ``run()`` and the ``run_many()`` each run K1 twice and no ``scatter``
    kernel.
-7. ``kernel:flash_attention`` — K3's tensor-core route (bf16, D 64;
-   ``csrc/flash_attention_sm90.cu``): no spills and setmaxnreg honoured in
-   its ptxas log, HGMMA in its SASS (``cuobjdump -sass``); then against
-   ``flash_torch`` on unit-normal q/k/v at the serve prefill's shape (B 8,
-   Hq 16, Hkv 8, S 2048, D 64), at S = 32,768 (B 1) and at the ragged
-   S = 2065, and the CUDA-core route on one float32 case; each checks the
-   route its launches took and is bitwise across two launches; timed
-   beside the plain version, ``scaled_dot_product_attention`` and the bound
-   (bytes of q, k, v, o; causal FLOPs at the bf16 peak, or the float32 peak
-   for float32), with TFLOP/s and the ratios to the library and the bound.
-8. ``kernel:fm_interaction`` — K4 against its plain version at B = 512 and
-   262,144 (F 39, K 10); bitwise across two launches; timed likewise.
-9. ``serve_lm`` — qwen3-0.6b at full width (28 layers, d 1024, vocab
-   151,936, random seeded weights): ``ServeEngine.generate`` on 8 requests
-   of 2048 tokens, 32 new each, twice (bitwise equal); K3's counts reset
-   just before the first and read just after (28, one per layer, all on
-   the tensor-core route); the
-   kernel prefill's logits against the plain prefill's (within 0.06 +
-   0.05 |logit|, top-1 equal where the margin is clear); prefill and decode
-   timed and profiled (device time by kernel, idle share).
-10. ``serve_fm`` — the FM at full width (80.31 M rows): ``forward`` with the
+7. ``topo_index`` — the topological window's DAG (``TOPO_DAG``: random_dag
+   n = 60,000, degree 10, locality 200, the graph of
+   ``benchmarks/bench_iindex.py``; integer attributes in [0, 100) from a
+   generator of its own, so no draw of the k-hop path shifts) and its
+   ``Session`` (sum, count, avg, min, max on ``TopologicalWindow()``,
+   which selects ``torch-iindex``): the host I-Index build, the PID forest's
+   depth, the window-difference entries and the plan's bytes.
+8. ``kernel:inherit_scan`` — K1 on the ``wd_plan`` (a third form: C = 3,
+   sum, min, max, and B = 8 x 3) checked and timed as above; the
+   inheritance-scan kernel at the main path's columns (C = 4: sum, count,
+   min, max) and at B = 8 x C, bitwise against its plain level loop on the
+   card and across two launches, also with NaN in the min/max columns;
+   timed beside the plain loop, the doubling schedule and its bound.
+9. ``topo_session`` — the topological main path: ``run()``, ``run_many()``
+   (B = 8), 20 tail batches (100 inserts and 25 deletes, every head among
+   the last 1 % of topological ranks, every insert from a lower rank to a
+   higher one), then one batch drawn like ``tests/test_updates.py``'s (10
+   random DAG inserts, 5 deletes), which trips the cone > n/2 rebuild;
+   each result bitwise against the session's host I-Index and against set
+   evaluation on 256 vertices; exactly 1 K1 and 1 scan launch per ``run()``
+   and per ``run_many()``; cone sizes, update times, plan signatures and
+   ``wd_plan`` shape changes.
+10. ``topo_profile`` — one topological ``run()`` under ``torch.profiler``:
+    one K1 and one scan kernel, device time and idle share.
+11. ``kernel:flash_attention`` — K3's tensor-core route (bf16, D 64;
+    ``csrc/flash_attention_sm90.cu``): no spills and setmaxnreg honoured in
+    its ptxas log, HGMMA in its SASS (``cuobjdump -sass``); then against
+    ``flash_torch`` on unit-normal q/k/v at the serve prefill's shape (B 8,
+    Hq 16, Hkv 8, S 2048, D 64), at S = 32,768 (B 1) and at the ragged
+    S = 2065, and the CUDA-core route on one float32 case; each checks the
+    route its launches took and is bitwise across two launches; timed
+    beside the plain version, ``scaled_dot_product_attention`` and the bound
+    (bytes of q, k, v, o; causal FLOPs at the bf16 peak, or the float32 peak
+    for float32), with TFLOP/s and the ratios to the library and the bound.
+12. ``kernel:fm_interaction`` — K4 against its plain version at B = 512 and
+    262,144 (F 39, K 10); bitwise across two launches; timed likewise.
+13. ``serve_lm`` — qwen3-0.6b at full width (28 layers, d 1024, vocab
+    151,936, random seeded weights): ``ServeEngine.generate`` on 8 requests
+    of 2048 tokens, 32 new each, twice (bitwise equal); K3's counts reset
+    just before the first and read just after (28, one per layer, all on
+    the tensor-core route); the
+    kernel prefill's logits against the plain prefill's (within 0.06 +
+    0.05 |logit|, top-1 equal where the margin is clear); prefill and decode
+    timed and profiled (device time by kernel, idle share; the profiled
+    prefill must show its 28 K3 launches).
+14. ``serve_fm`` — the FM at full width (80.31 M rows): ``forward`` with the
     kernel on 512 and 262,144 id rows over the whole int32 range; K4's count
     reset just before and read just after (one per forward); each result
     against the plain forward, a small batch against float64 NumPy.
-11. ``kernel:bitset_expand`` — K2 (last, so the 2 M-vertex graph of its
+15. ``kernel:bitset_expand`` — K2 (last, so the 2 M-vertex graph of its
     shape (c) is not in the process while the paths above are timed) at
     three shapes, words and occupancy masks bitwise against its
     plain version: (a) one hop from one batch's endpoints (what every
@@ -81,7 +107,7 @@ Phases, one JSON object per line:
     from the run's generator before phase 5, as the first K2 phase drew
     them; the K2 phase and phase 5's BFS leg draw from a generator of their
     own, so neither shifts a draw of the main path.
-12. ``kernels`` — one line per the repo's reporting contract; then the card
+16. ``kernels`` — one line per the repo's reporting contract; then the card
     line from ``nvidia-smi``; then the ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero; without CUDA it
@@ -740,6 +766,287 @@ def drive_main_path(sess, state, args, rng):
 
 
 # ---------------------------------------------------------------------- #
+# The topological window: a DAGGER-style random DAG (the graph of
+# benchmarks/bench_iindex.py): n, degree, locality.  n is cut from the k-hop
+# phase's 100,000 to 60,000, the paper's Fig. 14 size: at 100,000 the host
+# I-Index build (35 s on the H100 machine's host), the 20 tail batches' host
+# maintenance (6-17 s each) and the rebuild batch (37 s) held the whole run
+# at ~800 s of its 1200
+TOPO_DAG = (60_000, 10.0, 200)
+# tail batches: every edge's head among the last 1 % of topological ranks
+TOPO_TAIL = 0.01
+TOPO_AGGS = ("sum", "count", "min", "max")  # the scan's columns, in K1's order
+
+
+def topo_members(g, verts):
+    """``[n, len(verts)]`` bool: is ``u`` in ``W_t(verts[i])`` (``u`` itself
+    or an ancestor) — set evaluation independent of the I-Index: one sweep
+    in reverse topological order ORs each vertex's children's bits."""
+    import numpy as np
+
+    words = (len(verts) + 63) // 64
+    bits = np.zeros((g.n, words), np.uint64)
+    i = np.arange(len(verts))
+    bits[np.asarray(verts), i // 64] |= np.uint64(1) << (i % 64).astype(np.uint64)
+    for v in g.topological_order()[::-1]:
+        ch = g.out_neighbors(v)
+        if ch.size:
+            bits[v] |= np.bitwise_or.reduce(bits[ch], axis=0)
+    return np.unpackbits(bits.view(np.uint8), axis=1, bitorder="little")[:, :len(verts)] != 0
+
+
+def topo_set_eval(members, vals):
+    """The oracle's five aggregates of ``vals`` over each column's window."""
+    import numpy as np
+
+    out = {"sum": vals @ members, "count": members.sum(axis=0).astype(np.float64),
+           "min": np.where(members, vals[:, None], np.inf).min(axis=0),
+           "max": np.where(members, vals[:, None], -np.inf).max(axis=0)}
+    out["avg"] = out["sum"].astype(np.float32) / np.maximum(
+        out["count"].astype(np.float32), np.float32(1e-30))
+    return out
+
+
+def topo_batch(g, rng, ins, dels, tail=None):
+    """``ins`` inserts from a lower topological rank to a higher one and
+    ``dels`` deletes of existing edges; with ``tail``, every edge's head is
+    among the last ``tail`` share of the ranks, else anywhere (drawn as
+    ``tests/test_updates.py``'s ``random_dag_insert_batch`` and
+    ``random_delete_batch`` draw theirs)."""
+    import numpy as np
+
+    from repro_torch.core.updates import UpdateBatch
+
+    order = g.topological_order()
+    rank = np.empty(g.n, np.int64)
+    rank[order] = np.arange(g.n)
+    if tail:
+        heads = order[rng.integers(int(g.n * (1 - tail)), g.n, ins * 6)]
+        srcs = order[(rng.random(ins * 6) * rank[heads]).astype(np.int64)]
+        cand = np.flatnonzero(rank[g.dst] >= int(g.n * (1 - tail)))
+    else:
+        s, d = rng.integers(0, g.n, ins * 6), rng.integers(0, g.n, ins * 6)
+        srcs = np.where(rank[s] < rank[d], s, d)
+        heads = np.where(rank[s] < rank[d], d, s)
+        cand = np.arange(g.n_edges)
+    ok = (rank[srcs] < rank[heads]) & ~g.contains_edges(srcs, heads)
+    _, first = np.unique(g.edge_keys(srcs, heads), return_index=True)
+    pick = np.intersect1d(np.flatnonzero(ok), first)[:ins]
+    e = rng.choice(cand, dels, replace=False)
+    return UpdateBatch(np.concatenate([srcs[pick], g.src[e]]).astype(np.int32),
+                       np.concatenate([heads[pick], g.dst[e]]).astype(np.int32),
+                       np.concatenate([np.ones(pick.size, np.int8),
+                                       -np.ones(dels, np.int8)]))
+
+
+def topo_index(args, dev):
+    """The DAG and the topological ``Session`` (sum, count, avg, min, max):
+    the host I-Index build and the device plan."""
+    from repro_torch.core.api import QuerySpec, Session
+    from repro_torch.core.windows import TopologicalWindow
+    from repro_torch.graphs.generators import random_dag, with_random_attrs
+
+    n, degree, locality = TOPO_DAG
+    t = time.perf_counter()
+    g = with_random_attrs(random_dag(n, degree, seed=args.seed + 5, locality=locality),
+                          seed=args.seed + 6)
+    t_graph = time.perf_counter() - t
+    t = time.perf_counter()
+    sess = Session(g, [QuerySpec(TopologicalWindow(), a) for a in AGGS], torch_device=dev)
+    t_session = time.perf_counter() - t
+    engines = [grp.engine for grp in sess.compiled.groups]
+    check(engines == ["torch-iindex"], f"the topological Session selected {engines}")
+    (state,) = sess._states.values()
+    plan = state.plan
+    return sess, state, {
+        "n": g.n, "edges": g.n_edges, "degree": degree, "locality": locality,
+        "graph_s": t_graph, "session_build_s": t_session,
+        "iindex_build_s": state.index.stats["t_total_s"], "depth": plan.max_level,
+        "wd_entries": int(state.index.wd_members.size), "plan_bytes": plan.plan_nbytes(),
+        "wd_plan_rows": int(plan.wd_plan.seg_tiles.numel()), "engine": engines[0]}
+
+
+def _scan_case(name, plan, wdp, monoids, dev, reps, rng):
+    """The scan kernel on ``wdp`` against its plain level loop on the card
+    (bitwise, and bitwise across two launches; with NaN in the min/max
+    columns too), timed beside the plain loop, the doubling schedule and its
+    bound: ``wdp`` read once, the output written once, the PID forest and
+    its level layout read once; one combine a value at the float32 rate."""
+    import torch
+
+    from repro_torch.kernels.inherit_scan.inherit_scan import (
+        inherit_scan,
+        inherit_scan_doubling,
+        inherit_scan_plain,
+    )
+
+    args = (plan.pid, plan.order, plan.level_ptr)
+    kw = dict(max_level=plan.max_level, monoids=monoids)
+    k1, k2 = inherit_scan(wdp, *args, **kw), inherit_scan(wdp, *args, **kw)
+    p = inherit_scan_plain(wdp, *args, **kw)
+    torch.cuda.synchronize(dev)
+    err = float((k1 - p).abs().max())
+    check(torch.equal(k1, p), f"scan {name}: differs from its plain version by {err}")
+    check(torch.equal(k1, k2), f"scan {name}: two launches differ")
+    xq = torch.randn(wdp.shape, generator=torch.Generator(device=dev).manual_seed(7),
+                     device=dev)
+    cols = monoids[0] + torch.from_numpy(
+        rng.integers(0, monoids[1] + monoids[2], 64)).to(dev)
+    xq[torch.from_numpy(rng.integers(0, wdp.shape[0], 64)).to(dev), cols] = float("nan")
+    got, want = inherit_scan(xq, *args, **kw), inherit_scan_plain(xq, *args, **kw)
+    check(bool(torch.isnan(want).any()) and torch.equal(torch.isnan(got), torch.isnan(want))
+          and torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0)),
+          f"scan {name}: normal values with NaN not bitwise its plain version's")
+    b, by = bound_ms(nbytes(wdp, k1, plan.pid, plan.order)
+                     + 4 * (plan.max_level + 2), wdp.numel())
+    return {
+        "columns": int(wdp.shape[1]), "monoids": list(monoids), "depth": plan.max_level,
+        "max_abs_err": err, "ms": time_ms(lambda: inherit_scan(wdp, *args, **kw), dev, reps),
+        "plain_ms": time_ms(lambda: inherit_scan_plain(wdp, *args, **kw), dev, 2),
+        "doubling_ms": time_ms(lambda: inherit_scan_doubling(wdp, plan.pid, **kw), dev, reps),
+        "bound_ms": b, "bound_by": by, "library_ms": None,
+    }
+
+
+def kernel_inherit_scan(sess, state, dev, reps, rng):
+    """The scan at the main path's columns (C = 4: sum, count, min, max) and
+    at B = 8 x C, on this graph's window-difference partials; and K1 on the
+    ``wd_plan`` (the topological path's form: C = 3, sum, min, max, and
+    B = 8 x 3), checked and timed as K1's other forms are."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.segment_reduce.ops import segment_reduce_multi
+
+    plan = state.plan
+    vals = sess.graph.attrs["val"]
+    vb = rng.integers(0, 100, (8, sess.graph.n)).astype(np.float32)
+    forms, scans = {}, {}
+    for name, v in (("run", vals[None, :].astype(np.float32)), ("run_many", vb)):
+        b = v.shape[0]
+        cols = torch.from_numpy(np.ascontiguousarray(v.T)).to(dev)
+        x = torch.cat([cols, cols, cols], dim=1).contiguous()
+        forms[name] = _k1_pass(f"wd_plan {name}", plan.wd_plan, x, (b, b, b), dev, reps,
+                               rng, nan_case=True)
+        wd = segment_reduce_multi(plan.wd_plan, x, (b, b, b))
+        wdp = torch.cat([wd[:, :b], plan.wd_sizes[:, None].expand(-1, b), wd[:, b:]],
+                        dim=1).contiguous()
+        scans[name] = _scan_case(name, plan, wdp, (2 * b, b, b), dev, reps, rng)
+    return forms, scans
+
+
+def topo_session(sess, state, args, rng, dev):
+    """The topological main path, counted: ``run()`` and ``run_many()``
+    (B = 8), 20 tail batches, then one batch drawn like
+    ``tests/test_updates.py``'s (10 random DAG inserts, 5 deletes), which
+    trips the cone > n/2 rebuild.  Every result is checked bit for bit
+    against the host I-Index and, on ``args.oracle_vertices`` vertices,
+    against set evaluation; K1's and the scan's launches are counted."""
+    import numpy as np
+
+    from repro_torch.core.api import recompile_count
+    from repro_torch.kernels.inherit_scan.inherit_scan import inherit_scan
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
+
+    verts = np.sort(rng.choice(sess.graph.n, args.oracle_vertices, replace=False))
+    vb = rng.integers(0, 100, (8, sess.graph.n)).astype(np.float64)
+
+    calls = [0]  # run() and run_many() calls: each 1 K1 and 1 scan launch
+
+    def checked_run(version):
+        calls[0] += 1
+        t = time.perf_counter()
+        res = sess.run()
+        ms = (time.perf_counter() - t) * 1e3
+        vals = sess.graph.attrs["val"]
+        check_results(res, host_expect(state.index, vals), f"topo run v{version} vs host index")
+        check_results([r[verts] for r in res],
+                      topo_set_eval(topo_members(sess.graph, verts), vals),
+                      f"topo run v{version} vs set evaluation")
+        return ms
+
+    segment_sum_tiled.launches = 0
+    inherit_scan.launches = 0
+    run_ms = [checked_run(0)]
+    check(segment_sum_tiled.launches == 1 and inherit_scan.launches == 1,
+          f"topological run() made {segment_sum_tiled.launches} K1 and "
+          f"{inherit_scan.launches} scan launches, not 1 and 1")
+    t = time.perf_counter()
+    many = sess.run_many(vb)
+    run_many_first = (time.perf_counter() - t) * 1e3
+    calls[0] += 1
+    check(segment_sum_tiled.launches == 2 and inherit_scan.launches == 2,
+          f"topological run_many() made {segment_sum_tiled.launches - 1} K1 and "
+          f"{inherit_scan.launches - 1} scan launches, not 1 and 1")
+    members = topo_members(sess.graph, verts)
+    for b in range(vb.shape[0]):
+        row = [m[b] for m in many]
+        check_results(row, host_expect(state.index, vb[b]), f"topo run_many row {b} vs host")
+        check_results([r[verts] for r in row], topo_set_eval(members, vb[b]),
+                      f"topo run_many row {b} vs set evaluation")
+    run_many_ms = []
+    for _ in range(5):
+        t = time.perf_counter()
+        sess.run_many(vb)
+        run_many_ms.append((time.perf_counter() - t) * 1e3)
+        calls[0] += 1
+    count0 = recompile_count()
+    shape_changes, cones, update_ms = 0, [], []
+    for i in range(args.batches):
+        batch = topo_batch(sess.graph, rng, args.inserts, args.deletes, tail=TOPO_TAIL)
+        before = tuple(state.plan.wd_plan.seg_tiles.shape)
+        t = time.perf_counter()
+        (rep,) = sess.update(batch).values()
+        update_ms.append((time.perf_counter() - t) * 1e3)
+        cones.append(int(rep["affected"]))
+        shape_changes += tuple(state.plan.wd_plan.seg_tiles.shape) != before
+        run_ms.append(checked_run(i + 1))
+    count_after = recompile_count()
+    batch = topo_batch(sess.graph, rng, 10, 5)
+    t = time.perf_counter()
+    (rep,) = sess.update(batch).values()
+    rebuild_ms = (time.perf_counter() - t) * 1e3
+    run_ms.append(checked_run(args.batches + 1))
+    runs = calls[0]
+    check(segment_sum_tiled.launches == runs and inherit_scan.launches == runs,
+          f"{runs} topological run()/run_many() calls made {segment_sum_tiled.launches} "
+          f"K1 and {inherit_scan.launches} scan launches")
+    return {
+        "run_ms": statistics.median(run_ms), "run_ms_first": run_ms[0],
+        "run_many_ms": statistics.median(run_many_ms), "run_many_ms_first": run_many_first,
+        "run_many_ms_all": run_many_ms, "run_many_batch": int(vb.shape[0]),
+        "update_ms": statistics.median(update_ms), "update_ms_all": update_ms,
+        "batches": args.batches, "edits_per_batch": args.inserts + args.deletes,
+        "tail_share": TOPO_TAIL, "cone_sizes": cones,
+        "signatures_before_stream": count0, "signatures_after_stream": count_after,
+        "wd_plan_shape_changes": shape_changes,
+        "random_batch_cone": int(rep["affected"]),
+        "random_batch_rebuilt": int(rep["affected"]) == sess.graph.n,
+        "random_batch_update_ms": rebuild_ms, "depth_after": state.plan.max_level,
+        "plan_bytes_after": state.plan.plan_nbytes(),
+        "launches": {"segment_sum": segment_sum_tiled.launches,
+                     "inherit_scan": inherit_scan.launches},
+        "oracle_vertices": int(verts.size),
+    }
+
+
+def topo_profile(sess, state, dev, unprofiled_ms):
+    """One topological ``run()`` under ``torch.profiler``: one K1 and one
+    scan kernel, checked against the host index."""
+    res = []
+    out = device_profile(lambda: res.append(sess.run()), dev, unprofiled_ms,
+                         match=("segment_reduce_kernel", "inherit_scan_kernel"))
+    check_results(res[0], host_expect(state.index, sess.graph.attrs["val"]),
+                  "profiled topological run vs host index")
+    for sub in ("segment_reduce_kernel", "inherit_scan_kernel"):
+        check(out["matched"][sub]["launches"] == 1,
+              f"the profiled topological run() ran {sub} "
+              f"{out['matched'][sub]['launches']} times; the trace's device events: "
+              f"{out.get('top_device_events')}")
+    return out
+
+
+# ---------------------------------------------------------------------- #
 # K3 against flash_torch.  float32: within 1e-4 (the same float32
 # algorithm, summed in another order).  bf16: the kernel rounds p to bf16
 # before the PV product, as the TPU kernel does, and flash_torch keeps p in
@@ -908,28 +1215,45 @@ def fm_close(got, want, emb):
     return bool((diff <= TOL * mass).all()), float(diff.max())
 
 
+#: short spin kernels launched before and after each profiled call: a
+#: session opened minutes into the process loses the device records of its
+#: first launches (on the H100 machine, more the longer the process ran),
+#: so without the pad a short call can vanish from its trace
+PROFILE_PAD_LAUNCHES = 2000
+
+
 def device_profile(fn, dev, unprofiled_ms, match=()):
     """Run ``fn`` once under ``torch.profiler``: the device-side events
     (kernels and copies; the aten rows that carry their kernels' time again
-    are left out) against ``unprofiled_ms``, the unprofiled median wall time
-    of the same call, which gives the device's idle share; for each
-    substring in ``match``, the device time and share of the events whose
-    name holds it, and each such event's device time in launch order.  The
-    profiler's own host overhead is inside ``wall_ms_profiled`` only."""
+    are left out, and so are the pad's spin kernels) against
+    ``unprofiled_ms``, the unprofiled median wall time of the same call,
+    which gives the device's idle share; for each substring in ``match``,
+    the device time and share of the events whose name holds it, and each
+    such event's device time in launch order.  The profiler's own host
+    overhead is inside ``wall_ms_profiled`` only."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    t = time.perf_counter()
+    def pad():
+        for _ in range(PROFILE_PAD_LAUNCHES):
+            torch.cuda._sleep(100)
+        torch.cuda.synchronize(dev)
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pad()
+        t = time.perf_counter()
         fn()
         torch.cuda.synchronize(dev)
-    wall_ms_profiled = (time.perf_counter() - t) * 1e3
+        wall_ms_profiled = (time.perf_counter() - t) * 1e3
+        pad()
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+              and "spin_kernel" not in e.key]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
-    launches = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+    launches = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                       and "spin_kernel" not in e.name),
                       key=lambda e: e.time_range.start)
     matched = {}
     for sub in match:
@@ -1039,6 +1363,12 @@ def serve_lm(args, dev):
             T.decode_step(params, nxt, kv, plen + i, cfg)
 
     decode_ms = wall_ms(decode_steps, dev, 3) / steps
+    # the trace must still see K3 after the earlier phases' profiler sessions
+    prefill_prof = device_profile(lambda: T.prefill(params, tok_t, cfg), dev, prefill_ms,
+                                  match=("flash_fwd",))
+    check(prefill_prof["matched"]["flash_fwd"]["launches"] == cfg.n_layers,
+          f"the profiled prefill shows {prefill_prof['matched']['flash_fwd']['launches']} "
+          f"K3 launches, not {cfg.n_layers}")
     return {
         "model": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
         "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.head_dim,
@@ -1051,8 +1381,7 @@ def serve_lm(args, dev):
         "k3_launches_per_prefill": launches, "k3_launches_by_route": by_route,
         "logits_max_abs_delta_vs_plain": delta,
         "rows_with_clear_top1": int(decided.sum()), "top1_agree_rows": int(agree.sum()),
-        "profile_prefill": device_profile(lambda: T.prefill(params, tok_t, cfg),
-                                          dev, prefill_ms, match=("flash_fwd",)),
+        "profile_prefill": prefill_prof,
         "profile_decode_step": device_profile(
             lambda: T.decode_step(params, nxt, kv, plen, cfg), dev, decode_ms),
         "first_tokens": toks[:2, :8].tolist(),
@@ -1155,7 +1484,8 @@ def run(args, dev) -> None:
     ptxas = {name: build.ptxas_report(name) for name in secs}
     emit({"phase": "build", "seconds": time.perf_counter() - t,
           "per_kernel_s": secs, "ptxas": ptxas})
-    for name, what in (("segment_sum", "K1"), ("bitset_expand", "K2")):
+    for name, what in (("segment_sum", "K1"), ("bitset_expand", "K2"),
+                       ("inherit_scan", "the scan")):
         funcs = ptxas[name]["functions"]
         check(bool(funcs) and all(f.get("spill_stores") == 0 and f.get("spill_loads") == 0
                                   for f in funcs.values()),
@@ -1199,6 +1529,22 @@ def run(args, dev) -> None:
     check(launches["bitset_expand"] > 0, "the main path launched no K2")
     del sess, state, plan
 
+    # the topological window, on a generator of its own (no draw of the
+    # k-hop path above or of K2's phase below shifts)
+    topo_rng = np.random.default_rng(args.seed + 4)
+    tsess, tstate, topo = topo_index(args, dev)
+    emit({"phase": "topo_index", **topo})
+    k1_wd, scans = kernel_inherit_scan(tsess, tstate, dev, args.reps, topo_rng)
+    emit({"phase": "kernel:inherit_scan", "check": "ok", "k1_wd_plan": k1_wd, **scans})
+    tmain = topo_session(tsess, tstate, args, topo_rng, dev)
+    emit({"phase": "topo_session", **tmain})
+    tprof = topo_profile(tsess, tstate, dev, tmain["run_ms"])
+    emit({"phase": "topo_profile", "run": tprof})
+    launches["segment_sum"] += tmain["launches"]["segment_sum"]
+    launches["inherit_scan"] = tmain["launches"]["inherit_scan"]
+    check(launches["inherit_scan"] > 0, "the topological path launched no scan")
+    del tsess, tstate
+
     k3_build = k3_build_report()
     k3, k3_err = kernel_flash_attention(dev, args.reps, args.seed)
     emit({"phase": "kernel:flash_attention", "check": "ok", "max_abs_err": k3_err,
@@ -1228,6 +1574,8 @@ def run(args, dev) -> None:
          "minmax_form": {key: k1_forms["minmax"][key] for key in
                          ("ms", "back_to_back_ms", "plain_ms", "bound_ms", "library_ms",
                           "max_abs_err")},
+         "wd_plan_form": {key: k1_wd["run"][key] for key in
+                          ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")},
          "check": "ok"},
         {"name": "bitset_expand", "route": "cuda",
          "source": "src/repro_torch/csrc/bitset_expand.cu",
@@ -1260,6 +1608,18 @@ def run(args, dev) -> None:
          "bound_ms": k4_row["bound_ms"], "bound_by": k4_row["bound_by"],
          "library_ms": None,
          "library": "none: no single PyTorch call computes the FM term",
+         "check": "ok"},
+        {"name": "inherit_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/inherit_scan.cu",
+         "replaces": "src/repro/core/engine_jax.py:611 (_inherit_scan, jnp; no Pallas kernel)",
+         "launches": launches["inherit_scan"], "max_abs_err": scans["run"]["max_abs_err"],
+         "ms": scans["run"]["ms"], "plain_ms": scans["run"]["plain_ms"],
+         "bound_ms": scans["run"]["bound_ms"], "bound_by": scans["run"]["bound_by"],
+         "library_ms": None,
+         "library": "none: no single PyTorch call computes the scan",
+         "doubling_ms": scans["run"]["doubling_ms"], "depth": scans["run"]["depth"],
+         "run_many_form": {key: scans["run_many"][key] for key in
+                           ("ms", "plain_ms", "doubling_ms", "bound_ms")},
          "check": "ok"},
     ]
     if args.out:

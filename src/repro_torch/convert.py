@@ -1,10 +1,10 @@
 """Carry index, plan and model state across from the reference, as numpy arrays.
 
-The reference package's ``DBIndex`` and device ``DBIndexPlan`` flatten to
-plain arrays (``np.asarray`` of each field); these functions rebuild the
-port's objects from them, so the two packages can be fed the *same* index
-and plan and their query paths compared in isolation from the host
-builders.
+The reference package's ``DBIndex`` and ``IIndex`` and their device plans
+(``DBIndexPlan``, ``IIndexPlan``) flatten to plain arrays (``np.asarray``
+of each field); these functions rebuild the port's objects from them, so
+the two packages can be fed the *same* index and plan and their query
+paths compared in isolation from the host builders.
 """
 
 from __future__ import annotations
@@ -15,14 +15,17 @@ import numpy as np
 import torch
 
 from repro_torch.core.dbindex import DBIndex
-from repro_torch.core.engine_torch import DBIndexPlan
+from repro_torch.core.engine_torch import DBIndexPlan, IIndexPlan
+from repro_torch.core.iindex import IIndex
 from repro_torch.device import resolve_device, upload
+from repro_torch.kernels.inherit_scan.ops import level_layout
 from repro_torch.kernels.segment_reduce.ops import TilePlan
 
 DBINDEX_FIELDS = ("block_members", "block_offsets", "link_block",
                   "link_owner_offsets")
 TILE_PLAN_ARRAYS = ("gather_padded", "seg_tiles", "m2out", "first_visit")
 TILE_PLAN_INTS = ("num_segments", "num_out_tiles", "tm", "ts")
+IINDEX_FIELDS = ("pid", "wd_members", "wd_offsets", "level", "topo_order")
 
 
 def dbindex_from_arrays(arrays: Mapping) -> DBIndex:
@@ -69,6 +72,44 @@ def dbindex_plan_from_arrays(arrays: Mapping, torch_device="cuda") -> DBIndexPla
         link_counts=upload(arrays["link_counts"], dev, np.float32),
         device=dev,
         **ell,
+    )
+
+
+def iindex_from_arrays(arrays: Mapping) -> IIndex:
+    """A port :class:`IIndex` from the reference's fields: the arrays of
+    :data:`IINDEX_FIELDS`, ``n`` and (optionally) ``stats``."""
+    return IIndex(
+        n=int(arrays["n"]),
+        pid=np.array(arrays["pid"], np.int32),
+        wd_members=np.array(arrays["wd_members"], np.int32),
+        wd_offsets=np.array(arrays["wd_offsets"], np.int64),
+        level=np.array(arrays["level"], np.int32),
+        topo_order=np.array(arrays["topo_order"], np.int32),
+        stats=dict(arrays.get("stats", {})),
+    )
+
+
+def iindex_plan_from_arrays(arrays: Mapping, torch_device="cuda") -> IIndexPlan:
+    """A port :class:`IIndexPlan` on ``torch_device`` from the reference
+    plan's fields: ``wd_plan.<f>`` for every ``TilePlan`` field,
+    ``pid``, ``level``, ``n`` and ``max_level``.  The port's own arrays
+    follow from them: the level layout from ``level``, the window-difference
+    sizes from the tile plan's valid rows."""
+    dev = resolve_device(torch_device)
+    n = int(arrays["n"])
+    seg = np.asarray(arrays["wd_plan.seg_tiles"]).reshape(-1)
+    sizes = np.bincount(seg[seg >= 0], minlength=n)
+    order, level_ptr = level_layout(arrays["level"])
+    return IIndexPlan(
+        n=n,
+        max_level=int(arrays["max_level"]),
+        wd_plan=_tile_plan(arrays, "wd_plan", dev),
+        pid=upload(arrays["pid"], dev),
+        level=upload(arrays["level"], dev),
+        order=upload(order, dev),
+        level_ptr=upload(level_ptr, dev),
+        wd_sizes=upload(sizes, dev, np.float32),
+        device=dev,
     )
 
 

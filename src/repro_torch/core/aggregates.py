@@ -186,7 +186,10 @@ class _TorchNamespace:
     """``torch`` as a finalizer namespace.  ``torch.maximum`` rejects a
     Python scalar, which the registered finalizers pass (``xp.maximum(c,
     1e-30)``); ``torch.clamp(x, min=...)`` computes the same value exactly,
-    so the finalizers run unchanged on tensors."""
+    so the finalizers run unchanged on tensors.  ``sqrt`` is correctly
+    rounded, as NumPy's and ``jnp``'s are: torch's vectorized float32
+    ``sqrt`` on the CPU can be one ulp off, while the float64 root rounded
+    once to float32 is exact (53 >= 2 * 24 + 2 bits)."""
 
     def maximum(self, x, y):
         import torch
@@ -194,6 +197,13 @@ class _TorchNamespace:
         if isinstance(y, (int, float)):
             return torch.clamp(x, min=y)
         return torch.maximum(x, y)
+
+    def sqrt(self, x):
+        import torch
+
+        if x.dtype == torch.float32:
+            return torch.sqrt(x.double()).float()
+        return torch.sqrt(x)
 
     def __getattr__(self, name):
         import torch

@@ -26,7 +26,9 @@ The paper's GWQ abstraction (Definition 3) is one algebraic object —
   incremental flags) and the planner selects by capability; an
   :class:`UnsupportedQueryError` lists what *is* available when nothing
   matches.  The ``torch`` engine (the DBIndex device plan, kernels K1/K2)
-  takes the reference's ``jax`` row.
+  takes the reference's ``jax`` row, and ``torch-iindex`` (the I-Index
+  device plan: K1, then the inheritance-scan kernel) its ``jax-iindex``
+  row.
 * :func:`compile_queries` — dedups windows across specs, groups by
   (window, attr, engine), and fuses all aggregates sharing a window into
   one multi-channel plan (k aggregates collapse to one gather feeding k
@@ -237,7 +239,8 @@ KNOWN_OPTS = frozenset({
     "limit",  # nonindex
     "method", "num_hashes", "cluster_hops", "bfs_batch", "pair_budget",
     "seed",  # build_dbindex
-    "tm", "ts", "headroom", "torch_device",  # device
+    "iterations", "chunk_size",  # build_eagr
+    "tm", "ts", "headroom", "schedule", "torch_device",  # device
 })
 
 
@@ -288,6 +291,14 @@ def _run_iindex(g, window, values, aggs, index=None, plan=None, **opts):
     return {a: index.query(values, a) for a in aggs}
 
 
+def _run_eagr(g, window, values, aggs, index=None, plan=None, **opts):
+    from repro_torch.core.eagr import build_eagr
+
+    if index is None:
+        index = build_eagr(g, window, **_pick(opts, "iterations", "chunk_size"))
+    return {a: index.query(values, a) for a in aggs}
+
+
 def _run_torch_dbindex(g, window, values, aggs, index=None, plan=None, **opts):
     if plan is None:
         index = index if index is not None else _build_dbindex(g, window, opts)
@@ -297,18 +308,36 @@ def _run_torch_dbindex(g, window, values, aggs, index=None, plan=None, **opts):
     return {a: o.cpu().numpy() for a, o in zip(aggs, outs)}
 
 
+def _run_torch_iindex(g, window, values, aggs, index=None, plan=None, **opts):
+    from repro_torch.core.iindex import build_iindex
+
+    if plan is None:
+        index = index if index is not None else build_iindex(g)
+        plan = et.plan_from_iindex(index, **_pick(opts, "tm", "ts", "torch_device"))
+    outs = et.query_iindex_multi(plan, values, tuple(aggs),
+                                 **_pick(opts, "schedule"))
+    return {a: o.cpu().numpy() for a, o in zip(aggs, outs)}
+
+
+#: the fused [B, n] executor of each device engine (Session.run_many)
+_FUSED_MANY = {"torch": et.query_dbindex_multi,
+               "torch-iindex": et.query_iindex_multi}
+
+
 def _default_registry() -> EngineRegistry:
     r = EngineRegistry()
     both = ("khop", "topological")
     # "composite" marks the engines that consume *materialized* window sets
     # (bitset algebra, DBIndex blocks and the device plans built from
     # them) — the generic WindowExpr lowering; per-vertex-BFS and
-    # structure-specific backends (nonindex, iindex) stay leaf-only
+    # structure-specific backends (nonindex, eagr, iindex) stay leaf-only
     any_w = both + ("composite",)
     r.register(EngineCapability("nonindex", both, ALL_AGGREGATES, priority=0),
                _run_nonindex)
     r.register(EngineCapability("bitset", any_w, ALL_AGGREGATES, priority=10),
                _run_bitset)
+    r.register(EngineCapability("eagr", both, ALL_AGGREGATES, priority=20),
+               _run_eagr)
     r.register(EngineCapability("dbindex", any_w, ALL_AGGREGATES,
                                 incremental=True, priority=30), _run_dbindex)
     r.register(EngineCapability("iindex", ("topological",), ALL_AGGREGATES,
@@ -316,6 +345,9 @@ def _default_registry() -> EngineRegistry:
     r.register(EngineCapability("torch", any_w, ALL_AGGREGATES, device=True,
                                 incremental=True, priority=50),
                _run_torch_dbindex)
+    r.register(EngineCapability("torch-iindex", ("topological",), ALL_AGGREGATES,
+                                device=True, incremental=True, priority=60),
+               _run_torch_iindex)
     return r
 
 
@@ -491,7 +523,7 @@ def compile_queries(
 #  Session: graph + indices + compiled plans under streamed updates
 # ---------------------------------------------------------------------- #
 _DBINDEX_ENGINES = {"dbindex", "torch"}
-_IINDEX_ENGINES = {"iindex"}
+_IINDEX_ENGINES = {"iindex", "torch-iindex"}
 
 
 def _kind_of(engine: str) -> Optional[str]:
@@ -573,8 +605,11 @@ class Session:
         # one stateful engine per (materialized window, index kind) — shared
         # by every group (and every program term) on that key, so the
         # device flag is the OR over the sharing groups (a host group must
-        # not strip the plan a device group compiled)
+        # not strip the plan a device group compiled).  EAGR indices are
+        # rebuilt lazily after updates (no incremental story).
         self._states: Dict[Tuple[object, str], object] = {}
+        self._eagr: Dict[object, object] = {}
+        self._eagr_dirty = False
         need_device: Dict[Tuple[object, str], bool] = {}
         for gi, grp in enumerate(self.compiled.groups):
             kind = _kind_of(grp.engine)
@@ -610,12 +645,24 @@ class Session:
 
     def _group_artifacts(self, gi: int) -> Tuple[Tuple[object, object], ...]:
         """Per-term (index, plan) pairs of group ``gi``."""
-        kind = _kind_of(self.compiled.groups[gi].engine)
+        grp = self.compiled.groups[gi]
+        kind = _kind_of(grp.engine)
         out = []
         for term in self._group_terms(gi):
             state = self._states.get((term, kind)) if kind else None
-            out.append((state.index, state.plan) if state is not None
-                       else (None, None))
+            if state is not None:
+                out.append((state.index, state.plan))
+            elif grp.engine == "eagr":
+                if self._eagr_dirty:
+                    self._eagr.clear()
+                    self._eagr_dirty = False
+                if term not in self._eagr:
+                    from repro_torch.core.eagr import build_eagr
+
+                    self._eagr[term] = build_eagr(self.graph, term)
+                out.append((self._eagr[term], None))
+            else:
+                out.append((None, None))
         return tuple(out)
 
     def _values_for(self, grp: PlanGroup, values, graph=None):
@@ -642,13 +689,14 @@ class Session:
         """One [B, n] batch through one materialized window.
 
         A device plan takes the whole batch in one fused query: the batch
-        rides the channel columns, so each pass is one K1 launch.  Host
-        engines loop the batch.
+        rides the channel columns, so each pass is one K1 launch (and the
+        I-Index's inheritance scan one scan launch).  Host engines loop the
+        batch.
         """
         with self.tracer.span("query.term", cat="query", engine=grp.engine,
                               window=window.name(), rows=len(vb)):
-            if plan is not None and grp.engine == "torch":
-                outs = et.query_dbindex_multi(plan, vb, tuple(aggs))
+            if plan is not None and grp.engine in _FUSED_MANY:
+                outs = _FUSED_MANY[grp.engine](plan, vb, tuple(aggs))
                 return {a: o.cpu().numpy() for a, o in zip(aggs, outs)}
             rows = [
                 self.registry.run(grp.engine, g, window, v, aggs,
@@ -735,6 +783,8 @@ class Session:
                 with self.tracer.span("maintain", cat="update", state=key):
                     reports[key] = eng.apply(batch, graph=g2)
             self.graph = g2
+            self._eagr_dirty = (
+                bool(self._eagr) and batch.size > 0) or self._eagr_dirty
             self.updates_applied += 1
             self.version += 1
             self._m_updates.inc()

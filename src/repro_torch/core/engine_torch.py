@@ -1,8 +1,10 @@
-"""Device (PyTorch/CUDA) query data plane for the DBIndex.
+"""Device (PyTorch/CUDA) query data plane for the DBIndex and the I-Index.
 
-The host-built index becomes a static *plan* of device tensors: two chained
-tile plans — members→blocks, then links→owners — each one fused gather +
-segment sum (kernel K1, DESIGN.md §2).
+The host-built index becomes a static *plan* of device tensors.  DBIndex:
+two chained tile plans — members→blocks, then links→owners — each one
+fused gather + segment sum (kernel K1, DESIGN.md §2).  I-Index: one tile
+plan over the window differences (K1), then the inheritance scan along the
+PID forest (:func:`query_iindex_multi`, paper Algorithm 5).
 
 :func:`query_dbindex_multi` is the fused multi-aggregate executor behind
 :mod:`repro_torch.core.api`: one K1 launch per pass feeds every channel
@@ -22,7 +24,9 @@ import torch
 
 from repro_torch.core.aggregates import TORCH_XP, pack_channels
 from repro_torch.core.dbindex import DBIndex
+from repro_torch.core.iindex import IIndex
 from repro_torch.device import resolve_device, upload
+from repro_torch.kernels.inherit_scan.ops import inherit, level_layout
 from repro_torch.kernels.segment_reduce.ops import (
     TilePlan,
     build_tile_plan,
@@ -431,3 +435,155 @@ def query_dbindex(plan: DBIndexPlan, values, agg: str = "sum"):
     """values: [n] vertex attribute -> [n] window aggregates (one aggregate
     through the fused executor)."""
     return query_dbindex_multi(plan, values, (agg,))[0]
+
+
+# ---------------------------------------------------------------------- #
+#  I-Index plan
+# ---------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class IIndexPlan:
+    """Device plan of an I-Index: the window differences as one K1 tile
+    plan (members → owners), the PID forest, and its level layout for the
+    inheritance scan.  Every tensor's shape depends on ``n`` alone except
+    ``wd_plan``'s; ``max_level`` is data, handed to the scan as a scalar,
+    so a patch that deepens the forest changes no shape."""
+
+    n: int
+    max_level: int
+    wd_plan: TilePlan  # wd members -> per-vertex difference partials
+    pid: torch.Tensor  # i32 [n], -1 roots
+    level: torch.Tensor  # i32 [n]
+    order: torch.Tensor  # i32 [n], the vertices stably sorted by level
+    level_ptr: torch.Tensor  # i32 [n + 1], level L at order[ptr[L]:ptr[L+1]]
+    wd_sizes: torch.Tensor  # f32 [n], |WD(v)|: the count channel's partials
+    device: torch.device
+
+    def array_nbytes(self) -> dict:
+        """Exact per-array device bytes (see :meth:`DBIndexPlan.array_nbytes`)."""
+        out = {f"wd_plan.{k}": v for k, v in self.wd_plan.array_nbytes().items()}
+        for name in ("pid", "level", "order", "level_ptr", "wd_sizes"):
+            t = getattr(self, name)
+            out[name] = int(t.numel() * t.element_size())
+        return out
+
+    def plan_nbytes(self) -> int:
+        """Total device bytes held by this plan."""
+        return sum(self.array_nbytes().values())
+
+    def shape_signature(self) -> tuple:
+        """Every tensor shape of the plan (``max_level`` is data, not shape)."""
+        tensors = (self.wd_plan.gather_padded, self.wd_plan.seg_tiles, self.pid,
+                   self.level, self.order, self.level_ptr, self.wd_sizes)
+        return tuple(tuple(t.shape) for t in tensors)
+
+
+def _wd_rows(index: IIndex):
+    """(sizes, owner) of the flat WD arrays: each member row's owner."""
+    sizes = np.diff(index.wd_offsets)
+    return sizes, np.repeat(np.arange(index.n, dtype=np.int64), sizes)
+
+
+def _max_level(index: IIndex) -> int:
+    return int(index.level.max()) if index.n else 0
+
+
+def plan_from_iindex(index: IIndex, tm: int = 512, ts: int = 512,
+                     torch_device="cuda") -> IIndexPlan:
+    dev = resolve_device(torch_device)
+    sizes, owner = _wd_rows(index)
+    order, level_ptr = level_layout(index.level)
+    return IIndexPlan(
+        n=index.n,
+        max_level=_max_level(index),
+        wd_plan=build_tile_plan(index.wd_members, owner, index.n, tm, ts,
+                                torch_device=dev),
+        pid=upload(index.pid, dev),
+        level=upload(index.level, dev),
+        order=upload(order, dev),
+        level_ptr=upload(level_ptr, dev),
+        wd_sizes=upload(sizes, dev, np.float32),
+        device=dev,
+    )
+
+
+def patch_plan_iindex(plan: IIndexPlan, index: IIndex,
+                      changed_owners: np.ndarray) -> IIndexPlan:
+    """Incremental plan maintenance after ``update_iindex_batch``: only the
+    WD tile groups holding cone vertices are re-laid-out (in place when
+    their shapes hold, see :func:`patch_tile_plan`); the PID forest, its
+    level layout and the WD sizes are ``[n]`` arrays whose shapes never
+    change, written into the live tensors in place."""
+    dev = plan.device
+    sizes, owner = _wd_rows(index)
+    wd_plan = patch_tile_plan(plan.wd_plan, index.wd_members, owner, index.n,
+                              np.asarray(changed_owners, np.int64))
+    order, level_ptr = level_layout(index.level)
+    for t, a, dtype in ((plan.pid, index.pid, np.int32),
+                        (plan.level, index.level, np.int32),
+                        (plan.order, order, np.int32),
+                        (plan.level_ptr, level_ptr, np.int32),
+                        (plan.wd_sizes, sizes, np.float32)):
+        t.copy_(upload(a, dev, dtype))
+    return dataclasses.replace(plan, wd_plan=wd_plan, max_level=_max_level(index))
+
+
+def _query_iindex_multi_channels(plan: IIndexPlan, values: torch.Tensor,
+                                 aggs: tuple, schedule: str = "level"):
+    """Channel core of :func:`query_iindex_multi` over a ``[n, B]`` float32
+    column batch: returns the deduped monoid channels, each ``[n, B]``.
+
+    One K1 launch on ``wd_plan`` carries every channel's window-difference
+    partials (the value and square columns: sum, then min, then max; the
+    count channel reads the host-exact ``wd_sizes`` and skips it), then one
+    inheritance-scan launch carries every column again, each with its
+    monoid (the level schedule; the doubling schedule is plain PyTorch)."""
+    _SIGNATURES.add((plan.shape_signature(), aggs, tuple(values.shape),
+                     str(plan.device), schedule))
+    pack = pack_channels(aggs)
+    b = values.shape[1]
+    monoid_of = {ci: m for ci, (m, _) in enumerate(pack.channels)}
+    by_monoid = [ci for m in ("sum", "min", "max") for ci in monoid_of
+                 if monoid_of[ci] == m]
+    srcs = {"value": values}
+    if any(src == "square" for _, src in pack.channels):
+        srcs["square"] = values * values
+    gathered = {ci: srcs[pack.channels[ci][1]] for ci in by_monoid
+                if pack.channels[ci] != ("sum", "ones")}
+    wdp = _stacked_pass(plan.wd_plan, gathered,
+                        [ci for ci in by_monoid if ci in gathered], b, monoid_of)
+    for ci in by_monoid:
+        if ci not in gathered:  # window-difference sizes are host-exact
+            wdp[ci] = plan.wd_sizes[:, None].expand(-1, b)
+    counts = tuple(b * sum(monoid_of[ci] == m for ci in by_monoid)
+                   for m in ("sum", "min", "max"))
+    mat = torch.cat([wdp[ci] for ci in by_monoid], dim=1)
+    done = inherit(mat, plan.pid, plan.order, plan.level_ptr, plan.max_level,
+                   counts, schedule)
+    out = {ci: done[:, j * b:(j + 1) * b] for j, ci in enumerate(by_monoid)}
+    return tuple(out[ci] for ci in range(len(pack.channels)))
+
+
+def query_iindex_multi(plan: IIndexPlan, values, aggs: tuple,
+                       schedule: str = "level"):
+    """Fused multi-aggregate topological query via inheritance, over
+    ``values`` ``[n]`` or a ``[B, n]`` batch folded into the columns: one
+    K1 launch and one scan launch whatever the aggregates and ``B``.
+    min/max ride the per-monoid inheritance: containment (Theorem 5.1)
+    makes the parent's finished aggregate a valid partial for any monoid.
+    Finalizers run eagerly on the channel results.  Returns one float32
+    tensor per aggregate, in ``aggs`` order."""
+    aggs = tuple(aggs)
+    v = _as_values(values, plan.device)
+    batched = v.dim() == 2
+    cols = v.t().contiguous() if batched else v[:, None]
+    chans = _query_iindex_multi_channels(plan, cols, aggs, schedule)
+    chans = tuple(c.t() if batched else c[:, 0] for c in chans)
+    pack = pack_channels(aggs)
+    return tuple(pack.finalize(i, chans, xp=TORCH_XP) for i in range(len(aggs)))
+
+
+def query_iindex(plan: IIndexPlan, values, agg: str = "sum", *,
+                 schedule: str = "level"):
+    """values: [n] vertex attribute -> [n] topological window aggregates
+    (one aggregate through the fused executor)."""
+    return query_iindex_multi(plan, values, (agg,), schedule)[0]

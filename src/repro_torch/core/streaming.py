@@ -219,7 +219,8 @@ class StreamingEngine:
     """Stateful graph + index + device plan under a stream of UpdateBatches.
 
     ``index_kind``: "dbindex" (k-hop or topological windows) or "iindex"
-    (topological only, host-side for now).  ``device=False`` keeps
+    (topological only: the I-Index plan, K1 + the inheritance-scan
+    kernel).  ``device=False`` keeps
     everything host-side (NumPy query executor) — useful for oracles.
     ``torch_device`` places the device plan and the device BFS; it defaults
     to the card and raises when CUDA is absent unless it names the CPU.
@@ -245,9 +246,6 @@ class StreamingEngine:
     ):
         assert index_kind in ("dbindex", "iindex")
         self.torch_device = resolve_device(torch_device)
-        if index_kind == "iindex" and device:
-            raise NotImplementedError(
-                "the device I-Index plan is not ported yet; use device=False")
         self.obs = obs if obs is not None else _obs.get_registry()
         self.tracer = tracer if tracer is not None else _obs.get_tracer()
         self._m_maint = self.obs.counter(
@@ -297,9 +295,13 @@ class StreamingEngine:
             self._base_links = self._base_blocks = 0
         self.plan = None
         if self.device:
-            self.plan = et.plan_from_dbindex(self.index, self.tm, self.ts,
-                                             headroom=self.plan_headroom,
-                                             torch_device=self.torch_device)
+            self.plan = (
+                et.plan_from_dbindex(self.index, self.tm, self.ts,
+                                     headroom=self.plan_headroom,
+                                     torch_device=self.torch_device)
+                if self.index_kind == "dbindex"
+                else et.plan_from_iindex(self.index, self.tm, self.ts,
+                                         torch_device=self.torch_device))
         self.batches_since_reorg = 0
         if not initial:
             self.reorg_count += 1
@@ -383,11 +385,14 @@ class StreamingEngine:
         elif self.device:
             with self.tracer.span("plan.patch", cat="update",
                                   kind=self.index_kind, action="patch"):
-                self.plan = et.patch_plan_dbindex(
-                    self.plan, idx2, changed,
-                    compact_garbage=self.compact_garbage,
-                    headroom=self.plan_headroom,
-                )
+                if self.index_kind == "dbindex":
+                    self.plan = et.patch_plan_dbindex(
+                        self.plan, idx2, changed,
+                        compact_garbage=self.compact_garbage,
+                        headroom=self.plan_headroom,
+                    )
+                else:
+                    self.plan = et.patch_plan_iindex(self.plan, idx2, changed)
             self.plan_version += 1
         else:
             self.plan_version += 1  # host "plan" is the index itself
@@ -421,7 +426,8 @@ class StreamingEngine:
             values = self.graph.attrs["val"]
         if not self.device:
             return self.index.query(np.asarray(values), agg)
-        return et.query_dbindex(self.plan, values, agg).cpu().numpy()
+        query = et.query_dbindex if self.index_kind == "dbindex" else et.query_iindex
+        return query(self.plan, values, agg).cpu().numpy()
 
     def query_multi(self, aggs, values=None, **kw) -> list:
         """All ``aggs`` over the engine's window as one fused multi-channel
@@ -431,7 +437,8 @@ class StreamingEngine:
         if values is None:
             values = self.graph.attrs["val"]
         engine = (
-            "torch" if self.device
+            ("torch" if self.index_kind == "dbindex" else "torch-iindex")
+            if self.device
             else ("dbindex" if self.index_kind == "dbindex" else "iindex")
         )
         out = DEFAULT_REGISTRY.run(

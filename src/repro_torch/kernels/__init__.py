@@ -11,6 +11,10 @@
   CUDA cores (``csrc/flash_attention.cu``).
 * ``fm_interaction`` — K4, the FM second-order interaction: the FM
   recsys model's forward.
+* ``inherit_scan`` — the I-Index's inheritance scan along the PID forest
+  (the level schedule of paper Algorithm 5), a sum, min or max per column:
+  the topological window's query after its K1 pass.  It replaces no Pallas
+  kernel (the reference scans in ``jnp``).
 
 Each kernel module holds the wrapper (launch count, input checks) and a
 plain PyTorch version of the same function, which CPU tensors take and

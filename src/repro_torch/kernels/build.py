@@ -30,7 +30,7 @@ NVCC_FLAGS = (
 )
 #: every kernel source the port ships
 KERNELS = ("segment_sum", "bitset_expand", "flash_attention", "flash_attention_sm90",
-           "fm_interaction")
+           "fm_interaction", "inherit_scan")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

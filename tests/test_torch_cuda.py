@@ -366,3 +366,99 @@ def test_lm_prefill_launches_k3_per_layer(cuda):
     assert flash_attention.launches_by_route[path] == before_route + SMOKE.n_layers
     _, plain = T.prefill(params, toks, SMOKE, attn_backend="flash_torch")
     torch.testing.assert_close(logits, plain, atol=0.06, rtol=0.05)
+
+
+def _scan_forest(kind, n, rng):
+    """(pid, level) int32 of a PID forest, ids relabelled at random."""
+    if kind == "chain":
+        parent = np.arange(-1, n - 1)
+    elif kind == "wide":  # 7 roots, every other vertex at level 1
+        parent = rng.integers(0, 7, n)
+        parent[:7] = -1
+    else:
+        parent = (rng.random(n) * np.arange(n)).astype(np.int64)
+        parent[(rng.random(n) < 0.02) | (np.arange(n) == 0)] = -1
+    level = np.zeros(n, np.int64)
+    for v in range(n):
+        if parent[v] >= 0:
+            level[v] = level[parent[v]] + 1
+    perm = rng.permutation(n)
+    pid = np.full(n, -1, np.int32)
+    pid[perm[parent >= 0]] = perm[parent[parent >= 0]]
+    lv = np.empty(n, np.int32)
+    lv[perm] = level
+    return pid, lv
+
+
+@pytest.mark.parametrize("kind,n,monoids", [
+    ("chain", 5000, (1, 1, 1)),  # depth 4,999: > 4 chunks of staged level_ptr
+    ("wide", 100_000, (2, 0, 0)),  # one level of 99,993 vertices, multi-pass
+    ("random", 20_000, (4, 2, 3)),  # mixed monoids, 9 columns
+    ("random", 3000, (100, 50, 50)),  # more columns than blocks: 2 a block
+])
+def test_inherit_scan_kernel_matches_plain(cuda, monkeypatch, kind, n, monoids):
+    """The scan kernel against its plain level loop on the card: bitwise on
+    normal floats with NaN in the min/max columns, and across launches."""
+    from repro_torch.kernels.inherit_scan import inherit_scan as scan_mod
+    from repro_torch.kernels.inherit_scan.ops import level_layout
+
+    rng = np.random.default_rng(n)
+    pid, level = _scan_forest(kind, n, rng)
+    order, ptr = level_layout(level)
+    c = sum(monoids)
+    x = rng.normal(size=(n, c)).astype(np.float32)
+    if c > monoids[0]:  # NaN in the min/max columns
+        x[rng.integers(0, n, 50), monoids[0] + rng.integers(0, c - monoids[0], 50)] = np.nan
+    args = [torch.from_numpy(a).to(cuda) for a in (x, pid, order, ptr)]
+    kw = dict(max_level=int(level.max()), monoids=monoids)
+    want = scan_mod.inherit_scan_plain(*args, **kw)
+    monkeypatch.setattr(scan_mod, "inherit_scan_plain", _fail)
+    before = scan_mod.inherit_scan.launches
+    got = scan_mod.inherit_scan(*args, **kw)
+    again = scan_mod.inherit_scan(*args, **kw)
+    torch.cuda.synchronize()
+    assert scan_mod.inherit_scan.launches == before + 2
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan) and torch.equal(torch.isnan(again), nan)
+    assert torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0))
+    assert torch.equal(got.nan_to_num(0.0), again.nan_to_num(0.0))
+
+
+def test_topological_session_on_card_matches_host_index(cuda):
+    """A topological Session at n = 5,000 on the card: torch-iindex, one K1
+    and one scan launch per run() and per run_many(), every aggregate bit
+    for bit the host I-Index's, before and after a batch of updates."""
+    from repro_torch.core.api import QuerySpec, Session
+    from repro_torch.core.updates import UpdateBatch
+    from repro_torch.core.windows import TopologicalWindow
+    from repro_torch.graphs.generators import random_dag, with_random_attrs
+    from repro_torch.kernels.inherit_scan.inherit_scan import inherit_scan
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
+
+    aggs = ("sum", "count", "avg", "min", "max")
+    g = with_random_attrs(random_dag(5000, 10.0, seed=1, locality=200), seed=2)
+    sess = Session(g, [QuerySpec(TopologicalWindow(), a) for a in aggs], torch_device=cuda)
+    assert [grp.engine for grp in sess.compiled.groups] == ["torch-iindex"]
+    (state,) = sess._states.values()
+
+    def check(res, vals):
+        for a, r in zip(aggs, res):
+            want = state.index.query(vals, a)
+            if a == "avg":
+                s, c = (state.index.query(vals, x).astype(np.float32) for x in ("sum", "count"))
+                want = s / np.maximum(c, np.float32(1e-30))
+            assert np.array_equal(r.astype(want.dtype), want), a
+
+    vb = np.random.default_rng(3).integers(0, 100, (8, g.n)).astype(np.float64)
+    for step in range(2):
+        k1, scans = segment_sum_tiled.launches, inherit_scan.launches
+        check(sess.run(), sess.graph.attrs["val"])
+        many = sess.run_many(vb)
+        assert segment_sum_tiled.launches == k1 + 2 and inherit_scan.launches == scans + 2
+        for b in (0, 7):
+            check([m[b] for m in many], vb[b])
+        order = sess.graph.topological_order()
+        heads = order[-20:]
+        srcs = order[:20]
+        ok = ~sess.graph.contains_edges(srcs, heads)
+        sess.update(UpdateBatch.inserts(srcs[ok], heads[ok]))
