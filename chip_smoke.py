@@ -49,13 +49,19 @@ Phases, one JSON object per line:
    generator of its own, so no draw of the k-hop path shifts) and its
    ``Session`` (sum, count, avg, min, max on ``TopologicalWindow()``,
    which selects ``torch-iindex``): the host I-Index build, the PID forest's
-   depth, the window-difference entries and the plan's bytes.
+   depth, the window-difference entries and the plan's bytes; the host
+   chain layout's time and shape (chains, the longest, the most light
+   edges on a root-to-leaf path).
 8. ``kernel:inherit_scan`` — K1 on the ``wd_plan`` (a third form: C = 3,
    sum, min, max, and B = 8 x 3) checked and timed as above; the
-   inheritance-scan kernel at the main path's columns (C = 4: sum, count,
-   min, max) and at B = 8 x C, bitwise against its plain level loop on the
-   card and across two launches, also with NaN in the min/max columns;
-   timed beside the plain loop, the doubling schedule and its bound.
+   inheritance scan's chain-walk kernel at the main path's columns (C = 4:
+   sum, count, min, max) and at B = 8 x C on the DAG's partials, and at
+   C = 4 on a path and a star of the same n, bitwise against its plain
+   level loop on the card and across two launches, also with NaN in the
+   min/max columns; timed beside the plain loop (not on the path: 60,000
+   levels of eager launches), the doubling schedule, its bytes bound and
+   its dependency bound (depth x one dependent add at the SM clock's
+   maximum from ``nvidia-smi``).
 9. ``topo_session`` — the topological main path: ``run()``, ``run_many()``
    (B = 8), 20 tail batches (100 inserts and 25 deletes, every head among
    the last 1 % of topological ranks, every insert from a lower rank to a
@@ -64,7 +70,7 @@ Phases, one JSON object per line:
    each result bitwise against the session's host I-Index and against set
    evaluation on 256 vertices; exactly 1 K1 and 1 scan launch per ``run()``
    and per ``run_many()``; cone sizes, update times, plan signatures and
-   ``wd_plan`` shape changes.
+   ``wd_plan`` shape changes; the chain layout after the stream.
 10. ``topo_profile`` — one topological ``run()`` under ``torch.profiler``:
     one K1 and one scan kernel, device time and idle share.
 11. ``kernel:flash_attention`` — K3's tensor-core route (bf16, D 64;
@@ -130,6 +136,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 AGGS = ("sum", "count", "avg", "min", "max")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+# cycles of one dependent float32 add (FADD's latency on the SM): the
+# inheritance scan's dependency bound is depth x this at the SM clock
+DEP_COMBINE_CYCLES = 4
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 # normal float32 values: kernel and plain version add in different orders,
 # and the rounding of any order of a segment's adds is bounded by a multiple
@@ -863,15 +872,116 @@ def topo_index(args, dev):
         "graph_s": t_graph, "session_build_s": t_session,
         "iindex_build_s": state.index.stats["t_total_s"], "depth": plan.max_level,
         "wd_entries": int(state.index.wd_members.size), "plan_bytes": plan.plan_nbytes(),
-        "wd_plan_rows": int(plan.wd_plan.seg_tiles.numel()), "engine": engines[0]}
+        "wd_plan_rows": int(plan.wd_plan.seg_tiles.numel()), "engine": engines[0],
+        **topo_chains(state.index.pid, state.index.level)}
 
 
-def _scan_case(name, plan, wdp, monoids, dev, reps, rng):
+def light_edges(pid, level, chains):
+    """The most chain heads on any root path, the root's own chain not
+    counted: the light edges a root-to-leaf path crosses."""
+    import numpy as np
+
+    from repro_torch.kernels.inherit_scan.ops import level_layout
+
+    head = np.zeros(pid.size, np.int64)
+    head[chains.vertices[chains.ptr[:chains.count]]] = 1
+    order, ptr = level_layout(level)
+    light = np.zeros(pid.size, np.int64)
+    for lv in range(1, int(level.max(initial=0)) + 1):
+        idx = order[ptr[lv]:ptr[lv + 1]]
+        light[idx] = light[pid[idx]] + head[idx]
+    return int(light.max(initial=0))
+
+
+def chain_stats(pid, level, chains) -> dict:
+    """The chain layout's shape: chains, the longest (the spine), chains
+    longer than one batch of 32, and the most light edges on a path."""
+    import numpy as np
+
+    lens = np.diff(chains.ptr[:chains.count + 1])
+    return {"chains": chains.count, "spine": int(lens.max()),
+            "chains_over_32": int((lens > 32).sum()),
+            "max_light_edges": light_edges(pid, level, chains)}
+
+
+def topo_chains(pid, level, reps: int = 3) -> dict:
+    """The host chain layout of the index's PID forest: its build time
+    (median of ``reps``; what every plan build and patch adds) and shape."""
+    from repro_torch.kernels.inherit_scan.ops import chain_layout
+
+    ms = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        chains = chain_layout(pid, level)
+        ms.append((time.perf_counter() - t) * 1e3)
+    return {"chain_layout_ms": statistics.median(ms), **chain_stats(pid, level, chains)}
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock's maximum, as ``nvidia-smi`` reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def scan_forest(kind, n, dev):
+    """A PID forest of ``n`` vertices (``path``: one chain of depth
+    n - 1; ``star``: one root, n - 1 children) as :func:`forest_on` gives
+    it, ids relabelled by a seeded permutation."""
+    import numpy as np
+
+    parent = np.arange(-1, n - 1) if kind == "path" else np.r_[-1, np.zeros(n - 1, np.int64)]
+    level = np.arange(n) if kind == "path" else np.r_[0, np.ones(n - 1, np.int64)]
+    perm = np.random.default_rng(n).permutation(n)
+    pid = np.full(n, -1, np.int32)
+    pid[perm[parent >= 0]] = perm[parent[parent >= 0]]
+    lv = np.empty(n, np.int32)
+    lv[perm] = level
+    return forest_on(pid, lv, dev)
+
+
+def forest_on(pid, level, dev):
+    """``(forest, shape)``: the forest of ``pid`` / ``level`` in both
+    layouts, as the scan takes it on ``dev``, and its chain layout's shape."""
+    import torch
+
+    from repro_torch.kernels.inherit_scan.ops import forest_layout
+
+    host = forest_layout(pid, level)
+    return (host.map(lambda a: torch.from_numpy(a).to(dev)),
+            chain_stats(pid, level, host.chains))
+
+
+def plan_forest(plan):
+    """``(forest, shape)``: the main path's own forest, as the plan hands it
+    to the scan, and its chain layout's shape."""
+    host = plan.forest.map(lambda t: t.cpu().numpy())
+    return plan.forest, chain_stats(host.pid, plan.level.cpu().numpy(), host.chains)
+
+
+def _same_bits(a, b) -> bool:
+    """NaN in the same places, the same bits everywhere else (so +0.0 and
+    -0.0 differ)."""
+    import torch
+
+    nan = torch.isnan(b)
+    return torch.equal(torch.isnan(a), nan) and torch.equal(a.view(torch.int32)[~nan],
+                                                           b.view(torch.int32)[~nan])
+
+
+def _scan_case(name, forest, shape, wdp, monoids, dev, reps, rng, clock_mhz, plain_reps=2,
+               nan_case=True):
     """The scan kernel on ``wdp`` against its plain level loop on the card
-    (bitwise, and bitwise across two launches; with NaN in the min/max
-    columns too), timed beside the plain loop, the doubling schedule and its
-    bound: ``wdp`` read once, the output written once, the PID forest and
-    its level layout read once; one combine a value at the float32 rate."""
+    (bitwise, and bitwise across two launches; with ``nan_case``, also on
+    normal values with NaN in the min/max columns and -0.0 in 30 % of the
+    entries), timed beside the plain loop (``plain_reps`` calls; None: not
+    timed), the doubling schedule and its bounds: bytes (``wdp`` and the
+    forest, one int32 a vertex, read once, the output written once; one
+    combine a value at the float32 rate) and the dependency bound (depth x
+    one dependent combine at the SM clock).  ``shape`` is the chain
+    layout's, from :func:`chain_stats`."""
     import torch
 
     from repro_torch.kernels.inherit_scan.inherit_scan import (
@@ -880,45 +990,57 @@ def _scan_case(name, plan, wdp, monoids, dev, reps, rng):
         inherit_scan_plain,
     )
 
-    args = (plan.pid, plan.order, plan.level_ptr)
-    kw = dict(max_level=plan.max_level, monoids=monoids)
-    k1, k2 = inherit_scan(wdp, *args, **kw), inherit_scan(wdp, *args, **kw)
-    p = inherit_scan_plain(wdp, *args, **kw)
+    levels = (forest.pid, forest.order, forest.level_ptr)
+    kw = dict(max_level=forest.max_level, monoids=monoids)
+
+    def kernel(x):
+        return inherit_scan(x, forest, monoids=monoids)
+
+    k1, k2 = kernel(wdp), kernel(wdp)
+    p = inherit_scan_plain(wdp, *levels, **kw)
     torch.cuda.synchronize(dev)
-    err = float((k1 - p).abs().max())
-    check(torch.equal(k1, p), f"scan {name}: differs from its plain version by {err}")
-    check(torch.equal(k1, k2), f"scan {name}: two launches differ")
-    xq = torch.randn(wdp.shape, generator=torch.Generator(device=dev).manual_seed(7),
-                     device=dev)
-    cols = monoids[0] + torch.from_numpy(
-        rng.integers(0, monoids[1] + monoids[2], 64)).to(dev)
-    xq[torch.from_numpy(rng.integers(0, wdp.shape[0], 64)).to(dev), cols] = float("nan")
-    got, want = inherit_scan(xq, *args, **kw), inherit_scan_plain(xq, *args, **kw)
-    check(bool(torch.isnan(want).any()) and torch.equal(torch.isnan(got), torch.isnan(want))
-          and torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0)),
-          f"scan {name}: normal values with NaN not bitwise its plain version's")
-    b, by = bound_ms(nbytes(wdp, k1, plan.pid, plan.order)
-                     + 4 * (plan.max_level + 2), wdp.numel())
+    err = float((k1 - p).nan_to_num(0.0).abs().max())
+    check(_same_bits(k1, p), f"scan {name}: differs from its plain version by {err}")
+    check(_same_bits(k2, p), f"scan {name}: two launches differ")
+    if nan_case:
+        gen = torch.Generator(device=dev).manual_seed(7)
+        xq = torch.randn(wdp.shape, generator=gen, device=dev)
+        xq[torch.rand(wdp.shape, generator=gen, device=dev) < 0.3] = -0.0
+        cols = monoids[0] + torch.from_numpy(
+            rng.integers(0, monoids[1] + monoids[2], 64)).to(dev)
+        xq[torch.from_numpy(rng.integers(0, wdp.shape[0], 64)).to(dev), cols] = float("nan")
+        got, want = kernel(xq), inherit_scan_plain(xq, *levels, **kw)
+        check(bool(torch.isnan(want).any()) and bool((torch.signbit(want) & (want == 0)).any())
+              and _same_bits(got, want) and _same_bits(kernel(xq), want),
+              f"scan {name}: normal values with NaN and -0.0 not bitwise its plain version's")
+    b, by = bound_ms(nbytes(wdp, k1) + 4 * wdp.shape[0], wdp.numel())
     return {
-        "columns": int(wdp.shape[1]), "monoids": list(monoids), "depth": plan.max_level,
-        "max_abs_err": err, "ms": time_ms(lambda: inherit_scan(wdp, *args, **kw), dev, reps),
-        "plain_ms": time_ms(lambda: inherit_scan_plain(wdp, *args, **kw), dev, 2),
-        "doubling_ms": time_ms(lambda: inherit_scan_doubling(wdp, plan.pid, **kw), dev, reps),
+        "columns": int(wdp.shape[1]), "monoids": list(monoids), "depth": forest.max_level,
+        **shape, "max_abs_err": err, "ms": time_ms(lambda: kernel(wdp), dev, reps),
+        "plain_ms": (time_ms(lambda: inherit_scan_plain(wdp, *levels, **kw), dev, plain_reps)
+                     if plain_reps else "not measured"),
+        "doubling_ms": time_ms(lambda: inherit_scan_doubling(wdp, forest.pid, **kw),
+                               dev, reps),
         "bound_ms": b, "bound_by": by, "library_ms": None,
+        "dependency_bound_ms": forest.max_level * DEP_COMBINE_CYCLES / (clock_mhz * 1e3),
+        "sm_clock_max_mhz": clock_mhz,
     }
 
 
 def kernel_inherit_scan(sess, state, dev, reps, rng):
     """The scan at the main path's columns (C = 4: sum, count, min, max) and
-    at B = 8 x C, on this graph's window-difference partials; and K1 on the
-    ``wd_plan`` (the topological path's form: C = 3, sum, min, max, and
-    B = 8 x 3), checked and timed as K1's other forms are."""
+    at B = 8 x C, on this graph's window-difference partials, and at C = 4
+    on a path and a star of the same n; and K1 on the ``wd_plan`` (the
+    topological path's form: C = 3, sum, min, max, and B = 8 x 3), checked
+    and timed as K1's other forms are."""
     import numpy as np
     import torch
 
     from repro_torch.kernels.segment_reduce.ops import segment_reduce_multi
 
     plan = state.plan
+    clock = sm_clock_mhz()
+    forest, shape = plan_forest(plan)
     vals = sess.graph.attrs["val"]
     vb = rng.integers(0, 100, (8, sess.graph.n)).astype(np.float32)
     forms, scans = {}, {}
@@ -931,7 +1053,19 @@ def kernel_inherit_scan(sess, state, dev, reps, rng):
         wd = segment_reduce_multi(plan.wd_plan, x, (b, b, b))
         wdp = torch.cat([wd[:, :b], plan.wd_sizes[:, None].expand(-1, b), wd[:, b:]],
                         dim=1).contiguous()
-        scans[name] = _scan_case(name, plan, wdp, (2 * b, b, b), dev, reps, rng)
+        scans[name] = _scan_case(name, forest, shape, wdp, (2 * b, b, b), dev, reps, rng,
+                                 clock)
+    # normal values with -0.0 in 30 % of the entries and NaN in the min and
+    # max columns, one plain call each to check against (the path's is
+    # 60,000 levels of eager launches)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for kind, plain_reps in (("path", None), ("star", 2)):
+        wdp = torch.randn((sess.graph.n, 4), generator=gen, device=dev)
+        wdp[torch.rand(wdp.shape, generator=gen, device=dev) < 0.3] = -0.0
+        wdp[torch.randint(0, sess.graph.n, (64,), generator=gen, device=dev),
+            torch.randint(2, 4, (64,), generator=gen, device=dev)] = float("nan")
+        scans[kind] = _scan_case(kind, *scan_forest(kind, sess.graph.n, dev), wdp, (2, 1, 1),
+                                 dev, reps, rng, clock, plain_reps, nan_case=False)
     return forms, scans
 
 
@@ -1024,6 +1158,7 @@ def topo_session(sess, state, args, rng, dev):
         "random_batch_rebuilt": int(rep["affected"]) == sess.graph.n,
         "random_batch_update_ms": rebuild_ms, "depth_after": state.plan.max_level,
         "plan_bytes_after": state.plan.plan_nbytes(),
+        "chains_after": topo_chains(state.index.pid, state.index.level),
         "launches": {"segment_sum": segment_sum_tiled.launches,
                      "inherit_scan": inherit_scan.launches},
         "oracle_vertices": int(verts.size),
@@ -1617,9 +1752,13 @@ def run(args, dev) -> None:
          "bound_ms": scans["run"]["bound_ms"], "bound_by": scans["run"]["bound_by"],
          "library_ms": None,
          "library": "none: no single PyTorch call computes the scan",
-         "doubling_ms": scans["run"]["doubling_ms"], "depth": scans["run"]["depth"],
-         "run_many_form": {key: scans["run_many"][key] for key in
-                           ("ms", "plain_ms", "doubling_ms", "bound_ms")},
+         "dependency_bound_ms": scans["run"]["dependency_bound_ms"],
+         "doubling_ms": scans["run"]["doubling_ms"],
+         **{key: scans["run"][key] for key in ("depth", "chains", "spine", "max_light_edges")},
+         **{f"{form}_form": {key: scans[form][key] for key in
+                             ("ms", "plain_ms", "doubling_ms", "bound_ms",
+                              "dependency_bound_ms", "chains", "spine")}
+            for form in ("run_many", "path", "star")},
          "check": "ok"},
     ]
     if args.out:

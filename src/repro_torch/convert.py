@@ -15,10 +15,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.dbindex import DBIndex
-from repro_torch.core.engine_torch import DBIndexPlan, IIndexPlan
+from repro_torch.core.engine_torch import DBIndexPlan, IIndexPlan, iindex_plan
 from repro_torch.core.iindex import IIndex
 from repro_torch.device import resolve_device, upload
-from repro_torch.kernels.inherit_scan.ops import level_layout
 from repro_torch.kernels.segment_reduce.ops import TilePlan
 
 DBINDEX_FIELDS = ("block_members", "block_offsets", "link_block",
@@ -92,25 +91,16 @@ def iindex_from_arrays(arrays: Mapping) -> IIndex:
 def iindex_plan_from_arrays(arrays: Mapping, torch_device="cuda") -> IIndexPlan:
     """A port :class:`IIndexPlan` on ``torch_device`` from the reference
     plan's fields: ``wd_plan.<f>`` for every ``TilePlan`` field,
-    ``pid``, ``level``, ``n`` and ``max_level``.  The port's own arrays
-    follow from them: the level layout from ``level``, the window-difference
-    sizes from the tile plan's valid rows."""
+    ``pid``, ``level`` and ``n`` (``max_level`` is ``level``'s largest).
+    The port's own arrays follow from them: the level and chain layouts
+    from ``pid`` and ``level``, the window-difference sizes from the tile
+    plan's valid rows."""
     dev = resolve_device(torch_device)
     n = int(arrays["n"])
     seg = np.asarray(arrays["wd_plan.seg_tiles"]).reshape(-1)
     sizes = np.bincount(seg[seg >= 0], minlength=n)
-    order, level_ptr = level_layout(arrays["level"])
-    return IIndexPlan(
-        n=n,
-        max_level=int(arrays["max_level"]),
-        wd_plan=_tile_plan(arrays, "wd_plan", dev),
-        pid=upload(arrays["pid"], dev),
-        level=upload(arrays["level"], dev),
-        order=upload(order, dev),
-        level_ptr=upload(level_ptr, dev),
-        wd_sizes=upload(sizes, dev, np.float32),
-        device=dev,
-    )
+    return iindex_plan(n, _tile_plan(arrays, "wd_plan", dev), arrays["pid"],
+                       arrays["level"], sizes, dev)
 
 
 def transformer_params_from_arrays(tree: Mapping, cfg, torch_device="cuda"):

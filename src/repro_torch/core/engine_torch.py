@@ -26,7 +26,7 @@ from repro_torch.core.aggregates import TORCH_XP, pack_channels
 from repro_torch.core.dbindex import DBIndex
 from repro_torch.core.iindex import IIndex
 from repro_torch.device import resolve_device, upload
-from repro_torch.kernels.inherit_scan.ops import inherit, level_layout
+from repro_torch.kernels.inherit_scan.ops import Forest, forest_layout, inherit
 from repro_torch.kernels.segment_reduce.ops import (
     TilePlan,
     build_tile_plan,
@@ -443,26 +443,38 @@ def query_dbindex(plan: DBIndexPlan, values, agg: str = "sum"):
 @dataclasses.dataclass(frozen=True)
 class IIndexPlan:
     """Device plan of an I-Index: the window differences as one K1 tile
-    plan (members → owners), the PID forest, and its level layout for the
-    inheritance scan.  Every tensor's shape depends on ``n`` alone except
-    ``wd_plan``'s; ``max_level`` is data, handed to the scan as a scalar,
-    so a patch that deepens the forest changes no shape."""
+    plan (members → owners) and the PID forest in the scan's two layouts
+    (``forest``: the level layout the plain scan walks, the chain layout the
+    kernel walks).  Every tensor's shape depends on ``n`` alone except
+    ``wd_plan``'s; the forest's ``max_level`` and chain count are data,
+    handed to the scan as scalars, so a patch that deepens or re-cuts the
+    forest changes no shape."""
 
     n: int
-    max_level: int
     wd_plan: TilePlan  # wd members -> per-vertex difference partials
-    pid: torch.Tensor  # i32 [n], -1 roots
+    forest: Forest  # i32 [n] / [n + 1] tensors: pid, its level and chain layouts
     level: torch.Tensor  # i32 [n]
-    order: torch.Tensor  # i32 [n], the vertices stably sorted by level
-    level_ptr: torch.Tensor  # i32 [n + 1], level L at order[ptr[L]:ptr[L+1]]
     wd_sizes: torch.Tensor  # f32 [n], |WD(v)|: the count channel's partials
     device: torch.device
+
+    @property
+    def pid(self) -> torch.Tensor:  # i32 [n], -1 roots
+        return self.forest.pid
+
+    @property
+    def max_level(self) -> int:
+        return self.forest.max_level
+
+    def _arrays(self) -> dict:
+        names = ("pid", "order", "level_ptr", "chains.vertices", "chains.ptr",
+                 "chains.head_parent")
+        return {**dict(zip(names, self.forest.arrays())), "level": self.level,
+                "wd_sizes": self.wd_sizes}
 
     def array_nbytes(self) -> dict:
         """Exact per-array device bytes (see :meth:`DBIndexPlan.array_nbytes`)."""
         out = {f"wd_plan.{k}": v for k, v in self.wd_plan.array_nbytes().items()}
-        for name in ("pid", "level", "order", "level_ptr", "wd_sizes"):
-            t = getattr(self, name)
+        for name, t in self._arrays().items():
             out[name] = int(t.numel() * t.element_size())
         return out
 
@@ -471,9 +483,10 @@ class IIndexPlan:
         return sum(self.array_nbytes().values())
 
     def shape_signature(self) -> tuple:
-        """Every tensor shape of the plan (``max_level`` is data, not shape)."""
-        tensors = (self.wd_plan.gather_padded, self.wd_plan.seg_tiles, self.pid,
-                   self.level, self.order, self.level_ptr, self.wd_sizes)
+        """Every tensor shape of the plan (``max_level`` and the chain count
+        are data, not shape)."""
+        tensors = (self.wd_plan.gather_padded, self.wd_plan.seg_tiles,
+                   *self._arrays().values())
         return tuple(tuple(t.shape) for t in tensors)
 
 
@@ -483,27 +496,22 @@ def _wd_rows(index: IIndex):
     return sizes, np.repeat(np.arange(index.n, dtype=np.int64), sizes)
 
 
-def _max_level(index: IIndex) -> int:
-    return int(index.level.max()) if index.n else 0
+def iindex_plan(n: int, wd_plan: TilePlan, pid, level, wd_sizes,
+                dev: torch.device) -> IIndexPlan:
+    """An :class:`IIndexPlan` on ``dev`` around ``wd_plan``, its forest
+    laid out from ``pid`` and ``level``."""
+    return IIndexPlan(n=n, wd_plan=wd_plan,
+                      forest=forest_layout(pid, level).map(lambda a: upload(a, dev)),
+                      level=upload(level, dev), wd_sizes=upload(wd_sizes, dev, np.float32),
+                      device=dev)
 
 
 def plan_from_iindex(index: IIndex, tm: int = 512, ts: int = 512,
                      torch_device="cuda") -> IIndexPlan:
     dev = resolve_device(torch_device)
     sizes, owner = _wd_rows(index)
-    order, level_ptr = level_layout(index.level)
-    return IIndexPlan(
-        n=index.n,
-        max_level=_max_level(index),
-        wd_plan=build_tile_plan(index.wd_members, owner, index.n, tm, ts,
-                                torch_device=dev),
-        pid=upload(index.pid, dev),
-        level=upload(index.level, dev),
-        order=upload(order, dev),
-        level_ptr=upload(level_ptr, dev),
-        wd_sizes=upload(sizes, dev, np.float32),
-        device=dev,
-    )
+    wd_plan = build_tile_plan(index.wd_members, owner, index.n, tm, ts, torch_device=dev)
+    return iindex_plan(index.n, wd_plan, index.pid, index.level, sizes, dev)
 
 
 def patch_plan_iindex(plan: IIndexPlan, index: IIndex,
@@ -511,20 +519,20 @@ def patch_plan_iindex(plan: IIndexPlan, index: IIndex,
     """Incremental plan maintenance after ``update_iindex_batch``: only the
     WD tile groups holding cone vertices are re-laid-out (in place when
     their shapes hold, see :func:`patch_tile_plan`); the PID forest, its
-    level layout and the WD sizes are ``[n]`` arrays whose shapes never
-    change, written into the live tensors in place."""
+    level and chain layouts and the WD sizes are ``[n]`` arrays whose
+    shapes never change, written into the live tensors in place."""
     dev = plan.device
     sizes, owner = _wd_rows(index)
     wd_plan = patch_tile_plan(plan.wd_plan, index.wd_members, owner, index.n,
                               np.asarray(changed_owners, np.int64))
-    order, level_ptr = level_layout(index.level)
-    for t, a, dtype in ((plan.pid, index.pid, np.int32),
-                        (plan.level, index.level, np.int32),
-                        (plan.order, order, np.int32),
-                        (plan.level_ptr, level_ptr, np.int32),
-                        (plan.wd_sizes, sizes, np.float32)):
-        t.copy_(upload(a, dev, dtype))
-    return dataclasses.replace(plan, wd_plan=wd_plan, max_level=_max_level(index))
+    fresh = forest_layout(index.pid, index.level)
+    for live, a in zip(plan.forest.arrays(), fresh.arrays()):
+        live.copy_(upload(a, dev))
+    plan.level.copy_(upload(index.level, dev))
+    plan.wd_sizes.copy_(upload(sizes, dev, np.float32))
+    forest = plan.forest._replace(max_level=fresh.max_level,
+                                  chains=plan.forest.chains._replace(count=fresh.chains.count))
+    return dataclasses.replace(plan, wd_plan=wd_plan, forest=forest)
 
 
 def _query_iindex_multi_channels(plan: IIndexPlan, values: torch.Tensor,
@@ -536,7 +544,8 @@ def _query_iindex_multi_channels(plan: IIndexPlan, values: torch.Tensor,
     partials (the value and square columns: sum, then min, then max; the
     count channel reads the host-exact ``wd_sizes`` and skips it), then one
     inheritance-scan launch carries every column again, each with its
-    monoid (the level schedule; the doubling schedule is plain PyTorch)."""
+    monoid (the level schedule, walked along the plan's chains on the card;
+    the doubling schedule is plain PyTorch)."""
     _SIGNATURES.add((plan.shape_signature(), aggs, tuple(values.shape),
                      str(plan.device), schedule))
     pack = pack_channels(aggs)
@@ -557,8 +566,7 @@ def _query_iindex_multi_channels(plan: IIndexPlan, values: torch.Tensor,
     counts = tuple(b * sum(monoid_of[ci] == m for ci in by_monoid)
                    for m in ("sum", "min", "max"))
     mat = torch.cat([wdp[ci] for ci in by_monoid], dim=1)
-    done = inherit(mat, plan.pid, plan.order, plan.level_ptr, plan.max_level,
-                   counts, schedule)
+    done = inherit(mat, plan.forest, counts, schedule)
     out = {ci: done[:, j * b:(j + 1) * b] for j, ci in enumerate(by_monoid)}
     return tuple(out[ci] for ci in range(len(pack.channels)))
 

@@ -2,19 +2,21 @@
 of paper Algorithm 5), with a monoid (sum, min or max) per column.
 
 The CUDA kernel is ``csrc/inherit_scan.cu`` (its opening note says what it
-replaces and how it is designed).  :func:`inherit_scan` launches it for
-CUDA tensors and takes :func:`inherit_scan_plain` — the level loop over the
-same layout in PyTorch — only for tensors on the CPU.  The plain version is
-also the kernel's oracle on the card.  :func:`inherit_scan_doubling` is the
-pointer-doubling schedule, plain PyTorch as the reference computes it in
-``jnp`` outside any Pallas kernel.
+replaces and how it is designed): it walks the forest's heavy paths
+(:class:`ChainLayout`) and gives the level schedule's values bit for bit.
+:func:`inherit_scan` takes the forest in both layouts (:class:`Forest`),
+launches the kernel for CUDA tensors and takes :func:`inherit_scan_plain`
+— the level loop over the level layout in PyTorch — only for tensors on
+the CPU.  The plain version is also the kernel's oracle on the card.
+:func:`inherit_scan_doubling` is the pointer-doubling schedule, plain
+PyTorch as the reference computes it in ``jnp`` outside any Pallas kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -22,12 +24,75 @@ from repro_torch.kernels import build as _build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+WARP = 32  # the most columns a warp carries down a chain
+
+
+def _check_arrays(named, dev) -> None:
+    """Raise unless each ``(array, name, size)`` is an int32 vector of
+    ``size`` entries on ``dev``."""
+    for t, name, size in named:
+        _build.check_tensor(t, torch.int32, 1, name, dev)
+        if t.shape[0] != size:
+            raise ValueError(f"{name} has {t.shape[0]} entries, expected {size}")
+
+
+class ChainLayout(NamedTuple):
+    """The PID forest cut into chains (NumPy arrays or tensors; shapes by
+    ``n`` alone): chain ``k`` is ``vertices[ptr[k]:ptr[k + 1]]``, head to
+    tail, each vertex the parent of the next; ``head_parent[k]`` is the
+    position in ``vertices`` of the head's parent (-1 for a root); every
+    chain's parent lies in an earlier chain.  ``ptr`` entries past the last
+    chain are ``n``, ``head_parent`` entries -1."""
+
+    vertices: object  # int32 [n]
+    ptr: object  # int32 [n + 1]
+    head_parent: object  # int32 [n]
+    count: int
+
+    def check(self, n: int, dev) -> None:
+        """Raise unless the layout's tensors fit ``n`` vertices on ``dev``."""
+        _check_arrays([(self.vertices, "chains.vertices", n), (self.ptr, "chains.ptr", n + 1),
+                       (self.head_parent, "chains.head_parent", n)], dev)
+        if not min(n, 1) <= int(self.count) <= n:
+            raise ValueError(f"chains.count {self.count} outside [{min(n, 1)}, {n}]")
+
+
+class Forest(NamedTuple):
+    """The PID forest in the scan's two layouts (NumPy arrays or tensors;
+    shapes by ``n`` alone).  The level layout — ``pid`` (-1 for a root),
+    ``order`` (the vertices stably sorted by level), ``level_ptr`` (level
+    ``L`` is ``order[level_ptr[L]:level_ptr[L + 1]]``, entries past the
+    deepest level ``n``) and ``max_level`` (data) — is what the plain level
+    loop walks; ``chains`` is what the kernel walks."""
+
+    pid: object  # int32 [n]
+    order: object  # int32 [n]
+    level_ptr: object  # int32 [n + 1]
+    max_level: int
+    chains: ChainLayout
+
+    def arrays(self) -> tuple:
+        """The six ``[n]``-shaped arrays: the level layout's, then the chains'."""
+        return (self.pid, self.order, self.level_ptr, *self.chains[:3])
+
+    def map(self, fn) -> "Forest":
+        """The same forest with ``fn`` applied to each of its arrays."""
+        pid, order, level_ptr, *chains = map(fn, self.arrays())
+        return Forest(pid, order, level_ptr, self.max_level,
+                      ChainLayout(*chains, self.chains.count))
+
+    def check_levels(self, n: int, dev) -> None:
+        """Raise unless the level layout fits ``n`` vertices on ``dev``."""
+        _check_arrays([(self.pid, "pid", n), (self.order, "order", n),
+                       (self.level_ptr, "level_ptr", n + 1)], dev)
+        if not 0 <= int(self.max_level) < max(n, 1):
+            raise ValueError(f"max_level {self.max_level} outside [0, {n})")
 
 
 def _lib():
     fn = _build.load("inherit_scan").inherit_scan_f32
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
+        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -84,47 +149,45 @@ def inherit_scan_doubling(wdp: torch.Tensor, pid: torch.Tensor, *, max_level: in
     return val
 
 
-def inherit_scan(wdp: torch.Tensor, pid: torch.Tensor, order: torch.Tensor,
-                 level_ptr: torch.Tensor, *, max_level: int,
+def inherit_scan(wdp: torch.Tensor, forest: Forest, *,
                  monoids: Tuple[int, int, int]) -> torch.Tensor:
     """The level schedule over ``wdp`` ``[n, C]`` float32 whose columns are
     ``monoids = (n_sum, n_min, n_max)`` consecutive sum, min and max groups:
-    ``out[v] = op(wdp[v], out[pid[v]])`` level by level, the roots keeping
-    ``wdp``.  ``pid`` and ``order`` are int32 ``[n]``, ``level_ptr`` int32
-    ``[n + 1]`` (level ``L`` is ``order[level_ptr[L]:level_ptr[L + 1]]``),
-    and every vertex's level is at most ``max_level``, as
-    :func:`~repro_torch.kernels.inherit_scan.ops.level_layout` lays them
-    out.  CPU tensors take :func:`inherit_scan_plain`; CUDA tensors launch
-    the kernel, and anything the kernel does not take raises.  Every launch
-    adds one to ``inherit_scan.launches``."""
+    ``out[v] = op(wdp[v], out[pid[v]])`` from the roots down, the roots
+    keeping ``wdp``.  ``forest`` is the PID forest's :class:`Forest`, as
+    :func:`~repro_torch.kernels.inherit_scan.ops.forest_layout` lays it
+    out, its tensors on ``wdp``'s device.  CPU tensors take
+    :func:`inherit_scan_plain`, which reads the level layout; CUDA tensors
+    launch the chain-walk kernel, which reads the chain layout; each path
+    checks the layout it reads, and anything it does not take raises.
+    Every launch adds one to ``inherit_scan.launches``."""
     dev = wdp.device
     _build.check_tensor(wdp, torch.float32, 2, "wdp")
     n, channels = wdp.shape
-    for t, name, size in ((pid, "pid", n), (order, "order", n),
-                          (level_ptr, "level_ptr", n + 1)):
-        _build.check_tensor(t, torch.int32, 1, name, dev)
-        if t.shape[0] != size:
-            raise ValueError(f"{name} has {t.shape[0]} entries, expected {size}")
     monoids = tuple(int(x) for x in monoids)
     if len(monoids) != 3 or min(monoids) < 0 or sum(monoids) != channels:
         raise ValueError(f"monoids (n_sum, n_min, n_max) = {monoids} do not "
                          f"split the {channels} columns")
-    max_level = int(max_level)
-    if not 0 <= max_level < max(n, 1):
-        raise ValueError(f"max_level {max_level} outside [0, {n})")
     if dev.type == "cpu":
-        return inherit_scan_plain(wdp, pid, order, level_ptr, max_level=max_level,
-                                  monoids=monoids)
+        forest.check_levels(n, dev)
+        return inherit_scan_plain(wdp, forest.pid, forest.order, forest.level_ptr,
+                                  max_level=int(forest.max_level), monoids=monoids)
     if dev.type != "cuda":
         raise ValueError(f"inherit_scan: unsupported device {dev}")
+    chains = forest.chains
+    chains.check(n, dev)
     out = torch.empty_like(wdp)
     if n == 0 or channels == 0:
         return out
+    # the claim ticket, then one ready flag per (column group, chain position);
+    # the kernel's entry point zeroes it on the stream before the launch
+    work = torch.empty(1 + (channels + WARP - 1) // WARP * n, dtype=torch.int32, device=dev)
     fn = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(wdp.data_ptr(), pid.data_ptr(), order.data_ptr(), level_ptr.data_ptr(),
-                 n, channels, monoids[0], monoids[1], max_level, out.data_ptr(), stream)
+        err = fn(wdp.data_ptr(), chains.vertices.data_ptr(), chains.ptr.data_ptr(),
+                 chains.head_parent.data_ptr(), n, channels, monoids[0], monoids[1],
+                 int(chains.count), work.data_ptr(), out.data_ptr(), stream)
     _build.check(err, "inherit_scan_f32")
     inherit_scan.launches += 1
     return out

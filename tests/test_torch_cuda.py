@@ -375,6 +375,17 @@ def _scan_forest(kind, n, rng):
     elif kind == "wide":  # 7 roots, every other vertex at level 1
         parent = rng.integers(0, 7, n)
         parent[:7] = -1
+    elif kind == "star":  # one root, every other vertex at level 1
+        parent = np.zeros(n, np.int64)
+        parent[0] = -1
+    elif kind == "spine":  # a path over 8 % of the vertices, bushes hanging off it
+        parent = (rng.random(n) * np.arange(n)).astype(np.int64)
+        spine = n * 8 // 100
+        parent[:spine] = np.arange(-1, spine - 1)
+        bush = np.arange(spine, n)  # each bush vertex hangs near a spine vertex
+        near = rng.random(bush.size) < 0.5
+        parent[bush[near]] = rng.integers(0, spine, int(near.sum()))
+        parent[bush[rng.random(bush.size) < 0.0005]] = -1  # a few more roots
     else:
         parent = (rng.random(n) * np.arange(n)).astype(np.int64)
         parent[(rng.random(n) < 0.02) | (np.arange(n) == 0)] = -1
@@ -390,38 +401,77 @@ def _scan_forest(kind, n, rng):
     return pid, lv
 
 
-@pytest.mark.parametrize("kind,n,monoids", [
-    ("chain", 5000, (1, 1, 1)),  # depth 4,999: > 4 chunks of staged level_ptr
-    ("wide", 100_000, (2, 0, 0)),  # one level of 99,993 vertices, multi-pass
-    ("random", 20_000, (4, 2, 3)),  # mixed monoids, 9 columns
-    ("random", 3000, (100, 50, 50)),  # more columns than blocks: 2 a block
+def _assert_same_bits(got, want):
+    """NaN in the same places, the same bits everywhere else (so +0.0 and
+    -0.0 differ)."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got.view(torch.int32)[~nan], want.view(torch.int32)[~nan])
+
+
+@pytest.mark.parametrize("kind,n,monoids,data", [
+    ("chain", 5000, (1, 1, 1), "nan"),  # depth 4,999: one chain
+    ("wide", 100_000, (2, 0, 0), "nan"),  # one level of 99,993 vertices: 99,993 chains
+    ("random", 20_000, (4, 2, 3), "nan"),  # mixed monoids, 9 columns
+    ("random", 3000, (100, 50, 50), "nan"),  # 200 columns: 7 column groups a chain
+    ("chain", 60_000, (2, 1, 1), "nan"),  # one chain of 60,000 (the level kernel's 60,000 barriers)
+    ("star", 60_000, (2, 1, 1), "nan"),  # 59,999 chains of one vertex under one root
+    ("spine", 60_000, (2, 1, 1), "nan"),  # the measured DAG's shape at the main path's C = 4
+    ("spine", 60_000, (16, 8, 8), "nan"),  # ... at run_many's C = 32
+    ("spine", 60_000, (100, 50, 50), "nan"),  # ... at C = 200
+    ("random", 200_000, (1, 1, 1), "nan"),  # ~100,000 chains: far more than resident warps
+    # -0.0 in 30 % of the entries of every column, as the CPU tests' data:
+    # the roots keep it, and the max columns walk it sign-flipped
+    ("chain", 5000, (1, 1, 1), "negzero"),
+    ("random", 20_000, (4, 2, 3), "negzero"),
+    ("spine", 60_000, (2, 1, 1), "negzero"),
+    ("spine", 60_000, (16, 8, 8), "negzero"),
 ])
-def test_inherit_scan_kernel_matches_plain(cuda, monkeypatch, kind, n, monoids):
-    """The scan kernel against its plain level loop on the card: bitwise on
-    normal floats with NaN in the min/max columns, and across launches."""
+def test_inherit_scan_kernel_matches_plain(cuda, monkeypatch, kind, n, monoids, data):
+    """The chain-walk kernel against its plain level loop on the card:
+    bitwise (as int32 bit patterns, NaN aside) on normal floats with NaN in
+    the min/max columns or with -0.0, and across launches."""
     from repro_torch.kernels.inherit_scan import inherit_scan as scan_mod
-    from repro_torch.kernels.inherit_scan.ops import level_layout
+    from repro_torch.kernels.inherit_scan.ops import forest_layout
 
     rng = np.random.default_rng(n)
     pid, level = _scan_forest(kind, n, rng)
-    order, ptr = level_layout(level)
+    forest = forest_layout(pid, level).map(lambda a: torch.from_numpy(a).to(cuda))
     c = sum(monoids)
     x = rng.normal(size=(n, c)).astype(np.float32)
-    if c > monoids[0]:  # NaN in the min/max columns
+    if data == "negzero":
+        x[rng.random((n, c)) < 0.3] = -0.0
+    elif c > monoids[0]:  # NaN in the min/max columns
         x[rng.integers(0, n, 50), monoids[0] + rng.integers(0, c - monoids[0], 50)] = np.nan
-    args = [torch.from_numpy(a).to(cuda) for a in (x, pid, order, ptr)]
-    kw = dict(max_level=int(level.max()), monoids=monoids)
-    want = scan_mod.inherit_scan_plain(*args, **kw)
+    x = torch.from_numpy(x).to(cuda)
+    want = scan_mod.inherit_scan_plain(x, forest.pid, forest.order, forest.level_ptr,
+                                       max_level=forest.max_level, monoids=monoids)
     monkeypatch.setattr(scan_mod, "inherit_scan_plain", _fail)
     before = scan_mod.inherit_scan.launches
-    got = scan_mod.inherit_scan(*args, **kw)
-    again = scan_mod.inherit_scan(*args, **kw)
+    got = scan_mod.inherit_scan(x, forest, monoids=monoids)
+    again = scan_mod.inherit_scan(x, forest, monoids=monoids)
     torch.cuda.synchronize()
     assert scan_mod.inherit_scan.launches == before + 2
-    nan = torch.isnan(want)
-    assert torch.equal(torch.isnan(got), nan) and torch.equal(torch.isnan(again), nan)
-    assert torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0))
-    assert torch.equal(got.nan_to_num(0.0), again.nan_to_num(0.0))
+    if data == "negzero":
+        assert bool((torch.signbit(want) & (want == 0)).any())
+    _assert_same_bits(got, want)
+    _assert_same_bits(again, want)
+
+
+def test_inherit_scan_on_the_card_needs_the_chain_layout(cuda, monkeypatch):
+    """The card reads the chain layout and nothing else: one left on the
+    CPU raises, with no route to the plain loop."""
+    from repro_torch.kernels.inherit_scan import inherit_scan as scan_mod
+    from repro_torch.kernels.inherit_scan.ops import forest_layout
+
+    pid, level = _scan_forest("random", 100, np.random.default_rng(0))
+    host = forest_layout(pid, level).map(torch.from_numpy)
+    forest = host._replace(chains=host.map(lambda t: t.to(cuda)).chains)
+    x = torch.zeros((100, 2), device=cuda)
+    monkeypatch.setattr(scan_mod, "inherit_scan_plain", _fail)
+    scan_mod.inherit_scan(x, forest, monoids=(2, 0, 0))  # the level layout stays unread
+    with pytest.raises(ValueError, match="expected cuda"):
+        scan_mod.inherit_scan(x, host, monoids=(2, 0, 0))
 
 
 def test_topological_session_on_card_matches_host_index(cuda):

@@ -30,7 +30,7 @@ from repro_torch.core import iindex as p_iindex  # noqa: E402
 from repro_torch.core import streaming as p_stream  # noqa: E402
 from repro_torch.core import updates as p_updates  # noqa: E402
 from repro_torch.graphs import generators as p_gen  # noqa: E402
-from repro_torch.kernels.inherit_scan.ops import level_layout  # noqa: E402
+from repro_torch.kernels.inherit_scan.ops import chain_layout, level_layout  # noqa: E402
 
 AGGS = ("sum", "count", "avg", "min", "max", "var", "l2")
 TILE_FIELDS = ("gather_padded", "seg_tiles", "m2out", "first_visit",
@@ -59,10 +59,14 @@ def assert_same_plan(port_plan, ref_plan, index):
             assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
         else:
             assert a[k] == b[k], k
-    # the port's own arrays: the level layout and the WD sizes
+    # the port's own arrays: the level and chain layouts and the WD sizes
     order, ptr = level_layout(b["level"])
-    assert np.array_equal(_np(port_plan.order), order)
-    assert np.array_equal(_np(port_plan.level_ptr), ptr)
+    assert np.array_equal(_np(port_plan.forest.order), order)
+    assert np.array_equal(_np(port_plan.forest.level_ptr), ptr)
+    chains = chain_layout(b["pid"], b["level"])
+    assert port_plan.forest.chains.count == chains.count
+    for got, want in zip(port_plan.forest.chains[:3], chains[:3]):
+        assert got.dtype == torch.int32 and np.array_equal(_np(got), want)
     assert np.array_equal(_np(port_plan.wd_sizes), np.diff(index.wd_offsets).astype(np.float32))
 
 
@@ -267,3 +271,23 @@ def test_patched_plan_equals_fresh_plan_after_rebuild():
     pplan2 = et.patch_plan_iindex(pplan, pidx2, pch)
     assert pplan2.pid is live  # the [n] arrays are written in place
     assert_same_plan(pplan2, rplan2, ridx2)
+
+
+def test_patched_chain_layout_equals_fresh_plan_every_batch():
+    """The chain layout that ``patch_plan_iindex`` writes in place after
+    each batch of a DAG stream (tail and random batches) equals a fresh
+    ``plan_from_iindex``'s, and never changes the plan's shapes."""
+    _, ps = _pair(300, aggs=("sum", "max"))
+    state = _state(ps)
+    live = state.plan.forest.chains.vertices
+    signature = state.plan.shape_signature()
+    rng = np.random.default_rng(21)
+    for i in range(22):
+        s, d, op = dag_batch(ps.graph, rng, 6, 2, tail=None if i % 7 == 3 else 0.1)
+        ps.update(p_updates.UpdateBatch(s, d, op))
+        got, fresh = state.plan, et.plan_from_iindex(state.index, torch_device="cpu")
+        assert got.forest.chains.vertices is live
+        assert got.forest.chains.count == fresh.forest.chains.count
+        for a, b in zip(got.forest.chains[:3], fresh.forest.chains[:3]):
+            assert np.array_equal(_np(a), _np(b)), i
+        assert got.shape_signature()[2:] == signature[2:]  # all but wd_plan's
