@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one GPU and check them.
 
-    python3 chip_smoke.py    # full width: ER n=100k, degree 10, KHop(2);
+    python3 chip_smoke.py    # full width: ER n=100k, degree 10, KHop(2),
+                             # served by the window service with a WAL;
                              # the topological window on a 60k DAG;
                              # qwen3-0.6b serving; the Criteo-shaped FM
 
@@ -43,7 +44,24 @@ Phases, one JSON object per line:
    K1's and K2's device time by launch; the ``update()`` runs K2 once, the
    ``run()`` and the ``run_many()`` each run K1 twice and no ``scatter``
    kernel.
-7. ``topo_index`` — the topological window's DAG (``TOPO_DAG``: random_dag
+7. ``serve_window`` — the serving tier on the same k-hop ``Session``, at
+   full width (K1's and K2's counts reset just before, read just after):
+   ``WindowService(bucket=8, auto_flip=False)``, each flush 256 point reads
+   and 16 explicit-values full-graph reads (two padded chunks), readers
+   pinned while 3 update batches land, then ``flip()``: every served value
+   bitwise the host index of the version it reports (the pinned view's own
+   index), K1's launches per flush equal to 2 per group query plus 2 per
+   padded chunk, the clones per update (1, 0, 0) with their bytes and a
+   clone's device time; then ``AsyncWindowService`` with its flusher thread,
+   a segmented WAL (digest records on) and a client thread submitting point
+   and explicit-values reads while 5 more batches land (every ticket bitwise
+   its version's host index, no error): per-class latency, K1 launches per
+   flush, padded rows, ``wal.append`` and fsync times, ``digest`` time; a
+   checkpoint after the fourth batch; then recovery,
+   ``Session.restore_from_wal(..., checkpoint=...)`` (one more host EMC
+   build and the WAL's tail), bitwise the live ``run()`` with an equal
+   ``graph_crc``: checkpoint write and load, rebuild and replay times.
+8. ``topo_index`` — the topological window's DAG (``TOPO_DAG``: random_dag
    n = 60,000, degree 10, locality 200, the graph of
    ``benchmarks/bench_iindex.py``; integer attributes in [0, 100) from a
    generator of its own, so no draw of the k-hop path shifts) and its
@@ -52,7 +70,7 @@ Phases, one JSON object per line:
    depth, the window-difference entries and the plan's bytes; the host
    chain layout's time and shape (chains, the longest, the most light
    edges on a root-to-leaf path).
-8. ``kernel:inherit_scan`` — K1 on the ``wd_plan`` (a third form: C = 3,
+9. ``kernel:inherit_scan`` — K1 on the ``wd_plan`` (a third form: C = 3,
    sum, min, max, and B = 8 x 3) checked and timed as above; the
    inheritance scan's chain-walk kernel at the main path's columns (C = 4:
    sum, count, min, max) and at B = 8 x C on the DAG's partials, and at
@@ -62,7 +80,7 @@ Phases, one JSON object per line:
    levels of eager launches), the doubling schedule, its bytes bound and
    its dependency bound (depth x one dependent add at the SM clock's
    maximum from ``nvidia-smi``).
-9. ``topo_session`` — the topological main path: ``run()``, ``run_many()``
+10. ``topo_session`` — the topological main path: ``run()``, ``run_many()``
    (B = 8), 20 tail batches (100 inserts and 25 deletes, every head among
    the last 1 % of topological ranks, every insert from a lower rank to a
    higher one), then one batch drawn like ``tests/test_updates.py``'s (10
@@ -71,9 +89,9 @@ Phases, one JSON object per line:
    evaluation on 256 vertices; exactly 1 K1 and 1 scan launch per ``run()``
    and per ``run_many()``; cone sizes, update times, plan signatures and
    ``wd_plan`` shape changes; the chain layout after the stream.
-10. ``topo_profile`` — one topological ``run()`` under ``torch.profiler``:
+11. ``topo_profile`` — one topological ``run()`` under ``torch.profiler``:
     one K1 and one scan kernel, device time and idle share.
-11. ``kernel:flash_attention`` — K3's tensor-core route (bf16, D 64;
+12. ``kernel:flash_attention`` — K3's tensor-core route (bf16, D 64;
     ``csrc/flash_attention_sm90.cu``): no spills and setmaxnreg honoured in
     its ptxas log, HGMMA in its SASS (``cuobjdump -sass``); then against
     ``flash_torch`` on unit-normal q/k/v at the serve prefill's shape (B 8,
@@ -83,9 +101,9 @@ Phases, one JSON object per line:
     beside the plain version, ``scaled_dot_product_attention`` and the bound
     (bytes of q, k, v, o; causal FLOPs at the bf16 peak, or the float32 peak
     for float32), with TFLOP/s and the ratios to the library and the bound.
-12. ``kernel:fm_interaction`` — K4 against its plain version at B = 512 and
+13. ``kernel:fm_interaction`` — K4 against its plain version at B = 512 and
     262,144 (F 39, K 10); bitwise across two launches; timed likewise.
-13. ``serve_lm`` — qwen3-0.6b at full width (28 layers, d 1024, vocab
+14. ``serve_lm`` — qwen3-0.6b at full width (28 layers, d 1024, vocab
     151,936, random seeded weights): ``ServeEngine.generate`` on 8 requests
     of 2048 tokens, 32 new each, twice (bitwise equal); K3's counts reset
     just before the first and read just after (28, one per layer, all on
@@ -94,11 +112,11 @@ Phases, one JSON object per line:
     0.05 |logit|, top-1 equal where the margin is clear); prefill and decode
     timed and profiled (device time by kernel, idle share; the profiled
     prefill must show its 28 K3 launches).
-14. ``serve_fm`` — the FM at full width (80.31 M rows): ``forward`` with the
+15. ``serve_fm`` — the FM at full width (80.31 M rows): ``forward`` with the
     kernel on 512 and 262,144 id rows over the whole int32 range; K4's count
     reset just before and read just after (one per forward); each result
     against the plain forward, a small batch against float64 NumPy.
-15. ``kernel:bitset_expand`` — K2 (last, so the 2 M-vertex graph of its
+16. ``kernel:bitset_expand`` — K2 (last, so the 2 M-vertex graph of its
     shape (c) is not in the process while the paths above are timed) at
     three shapes, words and occupancy masks bitwise against its
     plain version: (a) one hop from one batch's endpoints (what every
@@ -113,7 +131,7 @@ Phases, one JSON object per line:
     from the run's generator before phase 5, as the first K2 phase drew
     them; the K2 phase and phase 5's BFS leg draw from a generator of their
     own, so neither shifts a draw of the main path.
-16. ``kernels`` — one line per the repo's reporting contract; then the card
+17. ``kernels`` — one line per the repo's reporting contract; then the card
     line from ``nvidia-smi``; then the ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero; without CUDA it
@@ -772,6 +790,262 @@ def drive_main_path(sess, state, args, rng):
         "launches": launches,
         "oracle_vertices": int(verts.size),
     }
+
+
+# ---------------------------------------------------------------------- #
+# The serving tier on the k-hop session: per pinned flush, 256 point reads
+# and 16 explicit-values full-graph reads (two padded chunks of 8); 3 update
+# batches under pinned readers, then 5 under concurrent service (a
+# checkpoint after the fourth)
+SERVE_POINTS = 256
+SERVE_FULL = 16
+SERVE_BUCKET = 8
+SERVE_BATCHES = (3, 5)
+
+
+def served_ok(agg, got, want) -> bool:
+    """A served value (float32 scalar or vector) against the host index's:
+    sum/count/min/max exact, avg the float32 quotient, bit for bit."""
+    import numpy as np
+
+    got = np.asarray(got)
+    if got.dtype != np.float32:
+        return False
+    if agg == "avg":
+        return got.tobytes() == np.asarray(want, np.float32).tobytes()
+    return np.array_equal(got.astype(np.float64), want)
+
+
+def serve_window(sess, state, policy, args, rng, dev):
+    """The serving tier over the k-hop ``Session`` (see the module note):
+    pinned reads across updates, concurrent service with a WAL, recovery
+    from a checkpoint and the WAL's tail.  Every served value is checked
+    bit for bit against the host index of the version it reports; K1's
+    launches per flush against the service's own count of group queries
+    and padded chunks (2 each)."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.core.api import Session, recompile_count
+    from repro_torch.kernels.bitset_expand.bitset_expand import bitset_expand_tiled
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
+    from repro_torch.obs.audit import graph_crc
+    from repro_torch.serve import (
+        AsyncWindowService,
+        SegmentedWriteAheadLog,
+        WindowService,
+        scan_segmented_entries,
+    )
+    from repro_torch.serve.checkpoint import load_checkpoint
+
+    n, specs = sess.graph.n, sess.compiled.specs
+    check([s.agg for s in specs] == list(AGGS), "serve_window expects the AGGS specs")
+    full_vals = rng.integers(0, 100, (SERVE_FULL, n)).astype(np.float64)
+    expected = {}
+
+    def expect(version, index, graph, vals, key):
+        if (version, key) not in expected:
+            expected[(version, key)] = host_expect(
+                index, graph.attrs["val"] if vals is None else vals)
+        return expected[(version, key)]
+
+    segment_sum_tiled.launches = 0
+    bitset_expand_tiled.launches = 0
+    signatures0 = recompile_count()
+    out = {}
+
+    # ---- 1. pinned reads: WindowService(auto_flip=False) --------------- #
+    svc = WindowService(sess, bucket=SERVE_BUCKET, auto_flip=False)
+    flushes = []
+
+    def pinned_flush(what):
+        view = svc._active
+        ((index, _),) = view.artifacts[0]
+        verts = rng.integers(0, n, SERVE_POINTS)
+        points = [svc.submit(i % len(specs), vertex=int(v)) for i, v in enumerate(verts)]
+        fulls = [svc.submit(j % len(specs), values=full_vals[j]) for j in range(SERVE_FULL)]
+        k1, misses, chunks = (segment_sum_tiled.launches, svc.cache.misses,
+                              svc.batched_launches)
+        hits0 = svc.point_hits
+        t = time.perf_counter()
+        svc.flush()
+        ms = (time.perf_counter() - t) * 1e3
+        made, groups = segment_sum_tiled.launches - k1, svc.cache.misses - misses
+        chunks = svc.batched_launches - chunks
+        check(chunks == SERVE_FULL // SERVE_BUCKET,
+              f"{what}: {chunks} padded chunks for {SERVE_FULL} explicit reads")
+        check(made == 2 * groups + 2 * chunks,
+              f"{what}: {made} K1 launches, expected 2 per group query ({groups}) "
+              f"and 2 per padded chunk ({chunks})")
+        for t in points:
+            check(t.error is None and t.version == view.version, f"{what}: ticket {t.rid}")
+            agg = AGGS[t.spec_index]
+            want = expect(view.version, index, view.graph, None, None)[agg][t.vertex]
+            check(served_ok(agg, t.result, want),
+                  f"{what}: point read {agg}@{t.vertex} = {t.result}, host index {want}")
+        for j, t in enumerate(fulls):
+            check(t.error is None and t.version == view.version, f"{what}: ticket {t.rid}")
+            agg = AGGS[t.spec_index]
+            check(served_ok(agg, t.result, expect(view.version, index, view.graph,
+                                                  full_vals[j], j)[agg]),
+                  f"{what}: explicit-values read {j} ({agg})")
+        flushes.append({"what": what, "version": view.version, "head": sess.version,
+                        "ms": ms, "k1_launches": made, "group_queries": groups,
+                        "padded_chunks": chunks, "point_hits": svc.point_hits - hits0})
+
+    v0 = sess.version
+    pinned_flush("cold cache")
+    pinned_flush("warm cache")
+    updates = []
+    for _ in range(SERVE_BATCHES[0]):
+        batch = make_batch(sess.graph, args, rng)
+        t = time.perf_counter()
+        (rep,) = svc.update(batch).values()
+        updates.append({"ms": (time.perf_counter() - t) * 1e3,
+                        "affected": int(rep["affected"]),
+                        "plan_clone_bytes": int(rep["plan_clone_bytes"])})
+        pinned_flush(f"pinned at v{v0}, head v{sess.version}")
+    check([u["plan_clone_bytes"] > 0 for u in updates] == [True, False, False],
+          f"clones per update {[u['plan_clone_bytes'] for u in updates]}: the first "
+          "update under the pinned view clones, the next two patch the clone in place")
+    check(svc.flip() == sess.version, "flip did not publish the head")
+    pinned_flush("after flip")
+    clone = state.plan.clone()
+    check(clone.shape_signature() == state.plan.shape_signature(), "a clone moved a shape")
+    del clone
+    out["pinned"] = {
+        "flushes": flushes, "updates": updates,
+        "plan_clones": sess.plan_clones, "plan_clone_bytes": sess.plan_clone_bytes,
+        "plan_clone_ms": time_ms(lambda: state.plan.clone(), dev, 5),
+        "cache": svc.cache.stats, "point_hits": svc.point_hits,
+        "point_misses": svc.point_misses, "padded_rows": svc.padded_rows,
+    }
+    sess._result_cache = None  # the async service attaches a cache of its own
+    del svc
+
+    # ---- 2. concurrent service: AsyncWindowService + segmented WAL ----- #
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="serve_window_", dir=os.path.join(ROOT, "build"))
+    reg, tracer = obs.MetricsRegistry(), obs.Tracer()
+    wal_dir, ckpt_dir = os.path.join(tmp, "wal"), os.path.join(tmp, "ckpt")
+    base = sess.version
+    versions = {base: (state.index, sess.graph)}
+    cvals = rng.integers(0, 100, (4, n)).astype(np.float64)
+    asvc = AsyncWindowService(sess, bucket=SERVE_BUCKET, wal=SegmentedWriteAheadLog(
+        wal_dir, obs=reg), wal_digests=True, policy=policy, obs=reg, tracer=tracer)
+    tickets, stop = [], threading.Event()
+    crng = np.random.default_rng(args.seed + 5)
+
+    def client():
+        i = 0
+        while not stop.is_set():
+            si, v, j = int(crng.integers(len(specs))), int(crng.integers(n)), i % len(cvals)
+            if i % 8 == 7:  # a full-graph read on the caller's values
+                tickets.append((asvc.submit(si, values=cvals[j], request_class="interactive"), j))
+            elif i % 8 == 3:  # a point read on the caller's values
+                tickets.append((asvc.submit(si, vertex=v, values=cvals[j]), j))
+            else:  # a point read of the current attributes (the cache)
+                tickets.append((asvc.submit(si, vertex=v), None))
+            i += 1
+            time.sleep(0.01)
+
+    k1, flushes0 = segment_sum_tiled.launches, asvc.flushes
+    asvc.start()
+    th = threading.Thread(target=client, name="serve-window-client", daemon=True)
+    th.start()
+    cupdates, ckpt = [], None
+    try:
+        for i in range(SERVE_BATCHES[1]):
+            time.sleep(0.25)  # readers run at this version
+            batch = make_batch(sess.graph, args, rng)
+            t = time.perf_counter()
+            (rep,) = asvc.update(batch).values()
+            cupdates.append({"ms": (time.perf_counter() - t) * 1e3,
+                             "affected": int(rep["affected"]),
+                             "plan_clone_bytes": int(rep["plan_clone_bytes"])})
+            versions[sess.version] = (state.index, sess.graph)
+            if i == 3:
+                t = time.perf_counter()
+                ckpt = sess.save_checkpoint(ckpt_dir)
+                ckpt_write_s = time.perf_counter() - t
+        time.sleep(0.25)
+    finally:
+        stop.set()
+        th.join(timeout=60)
+        asvc.stop()
+    check(not th.is_alive(), "the client thread did not stop")
+    made, nflush = segment_sum_tiled.launches - k1, asvc.flushes - flushes0
+    lat = {}
+    for t, j in tickets:
+        check(t.done and t.error is None, f"ticket {t.rid} failed: {t.error!r}")
+        index, graph = versions[t.version]
+        agg = AGGS[t.spec_index]
+        want = expect(t.version, index, graph, None if j is None else cvals[j], ("c", j))[agg]
+        got_ok = served_ok(agg, t.result, want if t.vertex is None else want[t.vertex])
+        check(got_ok, f"ticket {t.rid} ({agg}, vertex {t.vertex}, values {j}) at "
+                      f"v{t.version} differs from the host index")
+        lat.setdefault(t.class_name, []).append(t.latency_s * 1e3)
+    served_versions = sorted({t.version for t, _ in tickets})
+    check(len(served_versions) >= 2, f"tickets served at versions {served_versions} only")
+    entries, _ = scan_segmented_entries(wal_dir)
+    check([(e["kind"], e["version"]) for e in entries]
+          == [(k, base + i) for i in range(1, SERVE_BATCHES[1] + 1) for k in ("batch", "digest")],
+          "the WAL holds each batch and its digest, in version order")
+    check(entries[-1]["digest"] == sess.digest(), "the last WAL digest is not the session's")
+    appends = [e["dur"] / 1e3 for e in tracer.events() if e["name"] == "wal.append"]
+    _, fsync_sum, fsyncs = reg.histogram("repro_wal_fsync_seconds").merged()
+    stats = asvc.stats
+    out["concurrent"] = {
+        "tickets": len(tickets), "served_versions": served_versions, "updates": cupdates,
+        "latency_ms": {c: {"p50": float(np.percentile(v, 50)), "p99": float(np.percentile(v, 99)),
+                           "count": len(v)} for c, v in sorted(lat.items())},
+        "flushes": nflush, "k1_launches": made,
+        "k1_launches_per_flush": made / max(nflush, 1),
+        "fill_flushes": stats["fill_flushes"], "deadline_flushes": stats["deadline_flushes"],
+        "batched_launches": stats["batched_launches"], "padded_rows": stats["padded_rows"],
+        "cache": stats["cache"], "shed": stats["shed"],
+        "wal_append_ms": {"median": statistics.median(appends), "max": max(appends),
+                          "count": len(appends)},
+        "fsync_ms_mean": fsync_sum / max(fsyncs, 1) * 1e3, "fsyncs": fsyncs,
+        "wal_bytes": stats["wal"]["bytes_written"],
+        "digest_ms": wall_ms(lambda: sess.digest(), dev, 3),
+        "checkpoint_write_s": ckpt_write_s,
+    }
+    del asvc, tickets
+
+    # ---- 3. recovery: checkpoint + the WAL's tail ---------------------- #
+    t = time.perf_counter()
+    ckpt_version, _, _ = load_checkpoint(ckpt[1])
+    load_s = time.perf_counter() - t
+    check(ckpt_version == base + 4, f"checkpoint at v{ckpt_version}, expected v{base + 4}")
+    rtracer = obs.Tracer()
+    t = time.perf_counter()
+    restored = Session.restore_from_wal(
+        versions[base][1], specs, wal_dir, checkpoint=ckpt_dir, torch_device=dev,
+        use_device_bfs=True, policy=policy, tracer=rtracer)
+    restore_s = time.perf_counter() - t
+    replay_s = sum(e["dur"] for e in rtracer.events() if e["name"] == "session.update") / 1e6
+    check(restored.version == sess.version, f"restored v{restored.version}, live v{sess.version}")
+    for a, x, y in zip(AGGS, restored.run(), sess.run()):
+        check(x.dtype == y.dtype and x.tobytes() == y.tobytes(), f"restored run() differs: {a}")
+    check(graph_crc(restored.graph) == graph_crc(sess.graph), "restored graph_crc differs")
+    out["recovery"] = {
+        "checkpoint_version": ckpt_version, "checkpoint_write_s": ckpt_write_s,
+        "checkpoint_load_s": load_s, "restore_s": restore_s,
+        "rebuild_s": restore_s - replay_s - load_s, "tail_replay_s": replay_s,
+        "tail_batches": sess.version - ckpt_version,
+        "checkpoint_bytes": os.path.getsize(ckpt[1]),
+    }
+    del restored
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["signatures_delta"] = recompile_count() - signatures0
+    out["launches"] = {"segment_sum": segment_sum_tiled.launches,
+                       "bitset_expand": bitset_expand_tiled.launches}
+    return out
 
 
 # ---------------------------------------------------------------------- #
@@ -1662,6 +1936,12 @@ def run(args, dev) -> None:
     launches = main["launches"]
     check(launches["segment_sum"] > 0, "the main path launched no K1")
     check(launches["bitset_expand"] > 0, "the main path launched no K2")
+    served = serve_window(sess, state, policy, args, rng, dev)
+    emit({"phase": "serve_window", **served})
+    check(served["launches"]["segment_sum"] > 0, "the serving path launched no K1")
+    check(served["launches"]["bitset_expand"] > 0, "the serving path launched no K2")
+    for name, count in served["launches"].items():
+        launches[name] += count
     del sess, state, plan
 
     # the topological window, on a generator of its own (no draw of the

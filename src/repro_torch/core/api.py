@@ -39,14 +39,17 @@ The paper's GWQ abstraction (Definition 3) is one algebraic object —
   patching), and serves ``run`` / ``run_many`` traffic.  Device plans live
   on ``torch_device`` (the card unless the caller asks for the CPU).
 * :class:`SessionView` — a read snapshot pinned at one version.  Device
-  plans are patched in place, so a view reads only while the session is
-  still at its version; a view overtaken by an update raises instead of
-  answering from a half-new plan.
+  plans are patched in place, so :meth:`Session.update` first clones a
+  plan that a live view holds (copy-on-write) and patches the clone: a
+  view answers at its own version for as long as it lives.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import threading
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -67,6 +70,7 @@ from repro_torch.core.windows import (
     Union,
     WindowExpr,
     canonicalize,
+    filter_attrs,
     window_kind_of,
 )
 from repro_torch.device import resolve_device
@@ -254,6 +258,16 @@ def recompile_count() -> int:
     the port's analogue of the reference's jit cache entries, and the ONE
     number the zero-respecialization contract is asserted on."""
     return et.signature_count()
+
+
+def record_recompiles(obs=None) -> int:
+    """Publish :func:`recompile_count` as the ``repro_recompiles`` gauge
+    (in ``obs`` or the process default registry); returns the count."""
+    reg = obs if obs is not None else _obs.get_registry()
+    n = recompile_count()
+    reg.gauge("repro_recompiles",
+              "distinct plan shape signatures run by the fused executor").set(n)
+    return n
 
 
 def _run_nonindex(g, window, values, aggs, index=None, plan=None, **opts):
@@ -549,6 +563,13 @@ class Session:
     defaults to the card and raises when CUDA is absent unless the caller
     passes ``"cpu"``.  ``device`` keeps the reference's meaning: it selects
     host or device engines in :func:`compile_queries`.
+
+    Device plans are patched in place.  The session tracks its live
+    :class:`SessionView` objects, and :meth:`update` patches a clone of any plan
+    one of them holds (copy-on-write: ``plan_clones`` / ``plan_clone_bytes``
+    count them), so a pinned view keeps its version's plan; with no live
+    view the patch stays in place.  :meth:`snapshot` and :meth:`update`
+    serialize on one lock, so no view is taken of a half-patched state.
     """
 
     def __init__(
@@ -577,6 +598,9 @@ class Session:
             "repro_session_updates_total", "UpdateBatches applied")
         self._m_snapshots = self.obs.counter(
             "repro_snapshots_total", "SessionView captures")
+        self._m_clones = self.obs.counter(
+            "repro_plan_clones_total",
+            "device plans cloned before a patch because a live view held them")
         self.compiled = compile_queries(specs, registry=self.registry,
                                         device=device)
         self.graph = g
@@ -590,8 +614,16 @@ class Session:
         )
         self.updates_applied = 0
         #: monotonically increasing state version: bumped once per
-        #: :meth:`update`.  Snapshots pin it.
+        #: :meth:`update`.  Snapshots pin it; the serving layer's result
+        #: cache is keyed by it.
         self.version = 0
+        self._result_cache = None
+        #: live views (filled by :meth:`snapshot`): a plan one of them
+        #: holds is cloned before :meth:`update` patches it
+        self._views: "weakref.WeakSet[SessionView]" = weakref.WeakSet()
+        self._lock = threading.RLock()
+        self.plan_clones = 0
+        self.plan_clone_bytes = 0
         # per-group lowering programs: composite windows on stateful
         # dbindex-backed engines may decompose algebraically (their *terms*
         # get materialized instead of the composite itself)
@@ -737,21 +769,63 @@ class Session:
 
     # ------------------------------------------------------------------ #
     def snapshot(self) -> "SessionView":
-        """Pin the current version for reads (see :class:`SessionView`)."""
+        """Pin the current version for reads (see :class:`SessionView`).
+
+        Waits for an :meth:`update` in progress on another thread, so the
+        view is a point-in-time state; while it lives, updates patch clones
+        of the plans it holds."""
         self._m_snapshots.inc()
-        return SessionView(
-            session=self,
-            graph=self.graph,
-            version=self.version,
-            artifacts=tuple(self._group_artifacts(gi)
-                            for gi in range(len(self.compiled.groups))),
+        with self._lock:
+            view = SessionView(
+                session=self,
+                graph=self.graph,
+                version=self.version,
+                artifacts=tuple(self._group_artifacts(gi)
+                                for gi in range(len(self.compiled.groups))),
+            )
+            self._views.add(view)
+        return view
+
+    def attach_cache(self, cache) -> None:
+        """Attach an affected-owner result cache (duck-typed; see
+        :class:`repro_torch.serve.window_service.AffectedOwnerCache`):
+        ``run`` consults it for current-attribute reads, and every
+        :meth:`update` feeds it the per-group affected-owner sets so it
+        invalidates only the vertices whose windows actually changed.
+
+        One session serves one cache: a second distinct cache raises —
+        front one Session with one caching service (or ``use_cache=False``)."""
+        if self._result_cache is not None and self._result_cache is not cache:
+            raise RuntimeError(
+                "a result cache is already attached to this Session; "
+                "detach it (session._result_cache = None) or construct the "
+                "second WindowService with use_cache=False"
+            )
+        self._result_cache = cache
+        cache.bind(self)
+
+    def group_state_keys(self, gi: int) -> Tuple[str, ...]:
+        """Report keys of the stateful engines behind group ``gi`` (the
+        keys of :meth:`update` reports / :attr:`staleness`) — one per
+        materialized term on the algebraic fast path, empty for groups
+        with no incremental state (their cached results cannot be bounded
+        by an affected set and must be dropped wholesale on update)."""
+        grp = self.compiled.groups[gi]
+        kind = _kind_of(grp.engine)
+        if kind is None:
+            return ()
+        return tuple(
+            f"{term.name()}/{kind}" for term in self._group_terms(gi)
+            if (term, kind) in self._states
         )
 
     def run(self, values=None) -> List[np.ndarray]:
         """Evaluate every compiled spec; returns results in spec order.
 
         ``values`` overrides the graph attribute(s): an array (applied to
-        every group) or a dict keyed by attr name.
+        every group) or a dict keyed by attr name.  With an attached result
+        cache and ``values=None``, group vectors come from / land in the
+        cache (see :meth:`attach_cache`).
         """
         return self.snapshot().run(values)
 
@@ -761,36 +835,111 @@ class Session:
         return self.snapshot().run_many(values_batch)
 
     # ------------------------------------------------------------------ #
+    def digest(self, include_results: bool = False) -> Dict:
+        """Per-version content digest (crc32 over graph + plan arrays,
+        optionally the result vectors) — the leader/follower self-check
+        channel; see :func:`repro_torch.obs.audit.session_digest`."""
+        from repro_torch.obs.audit import session_digest
+
+        with self._lock:  # not across a concurrent update's half-patched state
+            return session_digest(self, include_results=include_results)
+
+    # ------------------------------------------------------------------ #
     def update(self, batch) -> Dict:
         """Stream one UpdateBatch through every stateful index + plan.
 
         The graph edit is applied once and shared by every engine (their
         index maintenance is per-window, the graph is not).  Bumps
-        :attr:`version`; each report carries the new version and the
-        engine's ``affected_owners`` array.  Attribute-value edits skip
-        index and plan maintenance (both are structure-only), except for a
+        :attr:`version`; each report carries the new version, the engine's
+        ``affected_owners`` array and ``plan_clone_bytes`` (non-zero when a
+        live view held the plan, which was cloned before the patch), and
+        an attached result cache is invalidated for exactly those owners.
+
+        Attribute-value edits skip index and plan maintenance (both are
+        structure-only) and invalidate the result cache through the
+        DBIndex reverse link map: exactly the owners whose windows contain
+        an edited vertex.  The exception is a
         :class:`~repro_torch.core.windows.Filter` predicate attribute,
         whose states the streaming engines re-filter or rebuild.
         """
-        from repro_torch.core.updates import apply_batch
-
         with self.tracer.span("session.update", cat="update",
                               size=batch.size, version=self.version + 1):
-            g2 = apply_batch(self.graph, batch)
-            reports = {}
-            for (window, kind), eng in self._states.items():
-                key = f"{window.name()}/{kind}"
-                with self.tracer.span("maintain", cat="update", state=key):
-                    reports[key] = eng.apply(batch, graph=g2)
-            self.graph = g2
-            self._eagr_dirty = (
-                bool(self._eagr) and batch.size > 0) or self._eagr_dirty
-            self.updates_applied += 1
-            self.version += 1
-            self._m_updates.inc()
-            for rep in reports.values():
-                rep["version"] = self.version
-            return reports
+            with self._lock:
+                return self._update_inner(batch)
+
+    def _held_plans(self) -> set:
+        """ids of the plans the live views hold."""
+        return {id(plan) for view in list(self._views)
+                for arts in view.artifacts for _, plan in arts
+                if plan is not None}
+
+    def _update_inner(self, batch) -> Dict:
+        from repro_torch.core.updates import apply_batch
+
+        g2 = apply_batch(self.graph, batch)
+        held = self._held_plans()
+        reports = {}
+        for (window, kind), eng in self._states.items():
+            key = f"{window.name()}/{kind}"
+            clone_bytes = 0
+            if eng.plan is not None and id(eng.plan) in held:
+                # copy-on-write: a live view reads this plan, so the patch
+                # goes into a clone (same shapes, fresh storage)
+                with self.tracer.span("plan.clone", cat="update", state=key):
+                    eng.plan = eng.plan.clone()
+                clone_bytes = eng.plan.plan_nbytes()
+                self.plan_clones += 1
+                self.plan_clone_bytes += clone_bytes
+                self._m_clones.inc()
+            with self.tracer.span("maintain", cat="update", state=key):
+                reports[key] = eng.apply(batch, graph=g2)
+            reports[key]["plan_clone_bytes"] = clone_bytes
+        self.graph = g2
+        self._eagr_dirty = (
+            bool(self._eagr) and batch.size > 0) or self._eagr_dirty
+        self.updates_applied += 1
+        self.version += 1
+        self._m_updates.inc()
+        for rep in reports.values():
+            rep["version"] = self.version
+        if self._result_cache is not None:
+            with self.tracer.span("cache.invalidate", cat="update"):
+                self._invalidate_cache(batch, g2, reports)
+        return reports
+
+    def _invalidate_cache(self, batch, g2, reports) -> None:
+        """Feed the attached result cache each group's affected owners
+        (None: drop the group's entry wholesale)."""
+        from repro_torch.core.updates import containing_owners
+
+        edited: Dict[str, list] = {}
+        for e in batch.attr_edits:
+            edited.setdefault(e.name, []).append(e.vertices)
+        owner_map = {}
+        for gi, grp in enumerate(self.compiled.groups):
+            keys = self.group_state_keys(gi)
+            group_attr_touched = grp.attr in edited
+            if not keys:
+                # no incremental state to bound the blast radius: drop on
+                # any change that could affect the group, keep on a
+                # provably-unrelated attr-only batch
+                unrelated = (
+                    batch.size == 0 and not group_attr_touched
+                    and not (set(edited) & set(filter_attrs(grp.window))))
+                owner_map[gi] = np.empty(0, np.int32) if unrelated else None
+                continue
+            parts = [reports[k]["affected_owners"] for k in keys]
+            if group_attr_touched:
+                verts = np.unique(np.concatenate(edited[grp.attr]))
+                kind = _kind_of(grp.engine)
+                for term in self._group_terms(gi):
+                    state = self._states.get((term, kind))
+                    if state is not None:
+                        parts.append(containing_owners(
+                            state.index, g2, term, verts))
+            owner_map[gi] = np.unique(np.concatenate(parts)).astype(
+                np.int32) if parts else np.empty(0, np.int32)
+        self._result_cache.on_update(self.version, owner_map)
 
     def replay(self, batches) -> int:
         """Replay an ordered batch stream through :meth:`update`.
@@ -806,6 +955,92 @@ class Session:
             applied += 1
         return applied
 
+    def save_checkpoint(self, directory) -> Tuple[int, str]:
+        """Write a snapshot checkpoint of this session's graph + digest to
+        ``directory`` (:mod:`repro_torch.serve.checkpoint`); returns
+        ``(version, path)``.  Pair with ``restore_from_wal(...,
+        checkpoint=directory)`` for bounded-tail recovery."""
+        from repro_torch.serve.checkpoint import save_checkpoint
+
+        return save_checkpoint(self, directory)
+
+    @classmethod
+    def from_checkpoint(cls, path, specs, **kw) -> "Session":
+        """Rebuild a session from one checkpoint file (no WAL tail).
+
+        The checkpoint's section CRCs and stamped ``graph_crc`` are
+        verified on load; the restored session resumes version numbering
+        at the checkpoint version.  Every engine state is a deterministic
+        function of the graph, so the results are bitwise the writer's —
+        but a freshly built plan's bytes may differ from the writer's
+        patched ones, so digest checks against it skip the plan component
+        (``check_plans=False``).  ``kw`` goes to the constructor
+        (``torch_device`` among them)."""
+        from repro_torch.serve.checkpoint import load_checkpoint
+
+        version, graph, _digest = load_checkpoint(path)
+        session = cls(graph, specs, **kw)
+        session.version = int(version)
+        return session
+
+    @classmethod
+    def restore_from_wal(cls, g: Graph, specs, wal, *,
+                         upto_version: Optional[int] = None,
+                         checkpoint=None, **kw):
+        """Crash recovery: rebuild a session by replaying a write-ahead log.
+
+        ``g`` and ``specs`` must be the *base* graph and specs the crashed
+        session started from (the WAL records every batch applied since);
+        ``wal`` is a log file path, a WAL segment directory, an open
+        :class:`~repro_torch.serve.wal.WriteAheadLog` /
+        :class:`~repro_torch.serve.wal.SegmentedWriteAheadLog`, or any
+        iterable of ``(version, batch)`` pairs.  ``upto_version`` stops the
+        replay early (point-in-time recovery).
+
+        ``checkpoint`` names a checkpoint directory (or a single checkpoint
+        file): recovery then starts from the newest usable checkpoint at or
+        below ``upto_version`` and replays only the WAL *tail* past it —
+        ``g`` is ignored in that case (the checkpoint carries the graph).
+        With no usable checkpoint, recovery falls back to the full replay.
+        All other kwargs go to the constructor (``torch_device`` among
+        them) — they must match the crashed session's for bitwise results.
+        """
+        session = None
+        after_version = 0
+        if checkpoint is not None:
+            from repro_torch.serve.checkpoint import latest_checkpoint
+
+            ckpt_path = os.fspath(checkpoint)
+            if os.path.isdir(ckpt_path):
+                found = latest_checkpoint(ckpt_path, upto_version=upto_version)
+                ckpt_path = found[1] if found else None
+            if ckpt_path is not None:
+                session = cls.from_checkpoint(ckpt_path, specs, **kw)
+                after_version = session.version
+        if hasattr(wal, "replay"):
+            records = list(wal.replay())
+        elif isinstance(wal, (str, os.PathLike)) and os.path.isdir(wal):
+            from repro_torch.serve.wal import read_segmented_records
+
+            records = read_segmented_records(wal, after_version)
+        elif isinstance(wal, (str, os.PathLike)):
+            from repro_torch.serve.wal import read_wal_records
+
+            records = read_wal_records(wal)[0]
+        else:
+            records = list(wal)
+        if session is None:
+            session = cls(g, specs, **kw)
+        for item in records:
+            version, batch = item if isinstance(item, tuple) else (None, item)
+            if version is not None and version <= after_version:
+                continue  # below the checkpoint: already folded in
+            if upto_version is not None and version is not None \
+                    and version > upto_version:
+                break
+            session.update(batch)
+        return session
+
     @property
     def staleness(self) -> Dict[str, Dict]:
         """Per-state sharing-loss telemetry (same keys as :meth:`update`
@@ -820,16 +1055,23 @@ class Session:
 # ---------------------------------------------------------------------- #
 #  SessionView: version-pinned read snapshot
 # ---------------------------------------------------------------------- #
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class SessionView:
     """A read view of a :class:`Session` pinned at one version.
 
     Holds the graph and every group's (index, plan) by reference.  Graphs
-    and host indices are immutable, but device plans are patched in place
-    by :meth:`Session.update` (it saves re-uploading the plan), so a view
-    whose groups hold a device plan answers only while the session is still
-    at the view's version; once overtaken it raises rather than read a plan
-    that is partly the next version's.
+    and host indices are immutable; device plans are patched in place by
+    :meth:`Session.update`, which therefore clones a plan a live view
+    holds and patches the clone (copy-on-write), so the view answers at
+    its own version for as long as it lives.  The serving layer
+    (:class:`repro_torch.serve.window_service.WindowService`) keeps one
+    active view for readers and republishes on ``flip()``.
+
+    Cache interplay: current-attribute reads (``values=None``) consult the
+    session's attached result cache.  Cache reads and writes are gated on
+    the view's version matching the cache's — a view pinned behind the
+    write head bypasses the cache rather than polluting it.  Views compare
+    by identity (the session tracks the live ones in a weak set).
     """
 
     session: Session
@@ -839,27 +1081,27 @@ class SessionView:
     #: groups hold one term, algebraic fast-path groups one per program term
     artifacts: Tuple[Tuple[Tuple[object, object], ...], ...]
 
-    def _check_current(self, gi: int) -> None:
-        if (self.version != self.session.version
-                and any(plan is not None for _, plan in self.artifacts[gi])):
-            raise RuntimeError(
-                f"SessionView pinned at version {self.version} was overtaken "
-                f"by version {self.session.version}: device plans are patched "
-                "in place, so take a new snapshot()")
-
     def run_group(self, gi: int, values=None) -> Dict[str, np.ndarray]:
         """All aggregates of plan group ``gi`` (one fused query per
-        materialized term on device engines)."""
-        self._check_current(gi)
+        materialized term on device engines), cache-aware for
+        current-attribute reads."""
+        cache = self.session._result_cache
+        if values is None and cache is not None:
+            hit = cache.get_group(gi, self.version)
+            if hit is not None:
+                return hit
         with self.session.tracer.span("query.group", cat="query", group=gi,
                                       version=self.version):
-            return self.session._exec_group(gi, self.artifacts[gi], values,
-                                            graph=self.graph)
+            out = self.session._exec_group(gi, self.artifacts[gi], values,
+                                           graph=self.graph)
+        if values is None and cache is not None:
+            cache.put_group(gi, self.version, out)
+        return out
 
     def run_group_many(self, gi: int, values_batch) -> Dict[str, np.ndarray]:
         """[B, n] batch through plan group ``gi`` — one fused query per
-        materialized term on device engines."""
-        self._check_current(gi)
+        materialized term on device engines (the scheduler's coalesced
+        flush path)."""
         with self.session.tracer.span("query.group", cat="query", group=gi,
                                       version=self.version, batched=True):
             return self.session._exec_group_many(gi, self.artifacts[gi],

@@ -29,6 +29,7 @@ from repro_torch.device import resolve_device, upload
 from repro_torch.kernels.inherit_scan.ops import Forest, forest_layout, inherit
 from repro_torch.kernels.segment_reduce.ops import (
     TilePlan,
+    _nbytes,
     build_tile_plan,
     patch_tile_plan,
     segment_reduce_multi,
@@ -67,18 +68,32 @@ class DBIndexPlan:
     p1_ell: Optional[torch.Tensor] = None  # i32 [block_capacity, R1] member ids
     p2_ell: Optional[torch.Tensor] = None  # i32 [n, R2] block ids
 
-    def array_nbytes(self) -> dict:
-        """Exact per-array device bytes, keyed ``pass1.<name>`` /
-        ``pass2.<name>`` / top-level array name."""
+    def named_arrays(self) -> dict:
+        """The plan's tensors keyed ``pass1.<name>`` / ``pass2.<name>`` /
+        top-level array name (the reference's ``array_nbytes`` keys): what
+        :meth:`array_nbytes` counts and the audit digest folds."""
         out = {}
         for prefix, tp in (("pass1", self.pass1), ("pass2", self.pass2)):
-            for k, v in tp.array_nbytes().items():
-                out[f"{prefix}.{k}"] = v
+            for k, t in tp.named_arrays().items():
+                out[f"{prefix}.{k}"] = t
         for name in ("block_sizes", "link_counts", "p1_ell", "p2_ell"):
             t = getattr(self, name)
             if t is not None:
-                out[name] = int(t.numel() * t.element_size())
+                out[name] = t
         return out
+
+    def array_nbytes(self) -> dict:
+        """Exact per-array device bytes, keyed as :meth:`named_arrays`."""
+        return {k: _nbytes(t) for k, t in self.named_arrays().items()}
+
+    def clone(self) -> "DBIndexPlan":
+        """The same plan in fresh storage (device-to-device copies on the
+        current stream): a patch of the clone leaves this plan as it is."""
+        return dataclasses.replace(
+            self, pass1=self.pass1.clone(), pass2=self.pass2.clone(),
+            **{name: getattr(self, name).clone()
+               for name in ("block_sizes", "link_counts", "p1_ell", "p2_ell")
+               if getattr(self, name) is not None})
 
     def plan_nbytes(self) -> int:
         """Total device bytes held by this plan (sum of per-array sizes)."""
@@ -189,7 +204,8 @@ def patch_plan_dbindex(
     appended block ids; pass 2 re-lays-out the groups containing
     ``changed_owners`` (the batch's affected owner set).  Everything else
     is kept from the live plan; shape-stable patches write into the live
-    tensors in place (see :func:`patch_tile_plan`).
+    tensors in place (see :func:`patch_tile_plan`; a caller that must keep
+    the old plan patches its :meth:`DBIndexPlan.clone`).
 
     Delete-heavy streams accumulate *garbage blocks* — blocks no owner
     links to any more, whose member rows still occupy pass-1 tiles.  When
@@ -471,12 +487,22 @@ class IIndexPlan:
         return {**dict(zip(names, self.forest.arrays())), "level": self.level,
                 "wd_sizes": self.wd_sizes}
 
+    def named_arrays(self) -> dict:
+        """The plan's tensors by name, the forest's and the chain layout's
+        included (see :meth:`DBIndexPlan.named_arrays`)."""
+        out = {f"wd_plan.{k}": t for k, t in self.wd_plan.named_arrays().items()}
+        out.update(self._arrays())
+        return out
+
     def array_nbytes(self) -> dict:
         """Exact per-array device bytes (see :meth:`DBIndexPlan.array_nbytes`)."""
-        out = {f"wd_plan.{k}": v for k, v in self.wd_plan.array_nbytes().items()}
-        for name, t in self._arrays().items():
-            out[name] = int(t.numel() * t.element_size())
-        return out
+        return {k: _nbytes(t) for k, t in self.named_arrays().items()}
+
+    def clone(self) -> "IIndexPlan":
+        """The same plan in fresh storage (see :meth:`DBIndexPlan.clone`)."""
+        return dataclasses.replace(self, wd_plan=self.wd_plan.clone(),
+                                   forest=self.forest.clone(), level=self.level.clone(),
+                                   wd_sizes=self.wd_sizes.clone())
 
     def plan_nbytes(self) -> int:
         """Total device bytes held by this plan."""

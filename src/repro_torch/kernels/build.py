@@ -17,6 +17,7 @@ import pathlib
 import re
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, Iterable
 
@@ -33,6 +34,9 @@ KERNELS = ("segment_sum", "bitset_expand", "flash_attention", "flash_attention_s
            "fm_interaction", "inherit_scan")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# serializes first uses: two threads (a service's flusher and its updater)
+# launching kernels must not both start nvcc on one output file
+_LOAD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -87,12 +91,16 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, building it if needed."""
+    """The loaded library of kernel ``name``, building it if needed (one
+    thread at a time; a loaded library is returned without the lock)."""
     lib = _LIBS.get(name)
     if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LIBS[name] = lib
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                build((name,))
+                lib = ctypes.CDLL(str(library_path(name)))
+                _LIBS[name] = lib
     return lib
 
 

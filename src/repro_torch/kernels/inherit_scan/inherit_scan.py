@@ -49,6 +49,10 @@ class ChainLayout(NamedTuple):
     head_parent: object  # int32 [n]
     count: int
 
+    def clone(self) -> "ChainLayout":
+        """The same layout in fresh storage (tensors only)."""
+        return ChainLayout(*(t.clone() for t in self[:3]), self.count)
+
     def check(self, n: int, dev) -> None:
         """Raise unless the layout's tensors fit ``n`` vertices on ``dev``."""
         _check_arrays([(self.vertices, "chains.vertices", n), (self.ptr, "chains.ptr", n + 1),
@@ -80,6 +84,10 @@ class Forest(NamedTuple):
         pid, order, level_ptr, *chains = map(fn, self.arrays())
         return Forest(pid, order, level_ptr, self.max_level,
                       ChainLayout(*chains, self.chains.count))
+
+    def clone(self) -> "Forest":
+        """The same forest in fresh storage (tensors only)."""
+        return self.map(lambda t: t.clone())
 
     def check_levels(self, n: int, dev) -> None:
         """Raise unless the level layout fits ``n`` vertices on ``dev``."""

@@ -45,14 +45,21 @@ class TilePlan:
     ts: int
     device: torch.device
 
+    def named_arrays(self) -> "dict":
+        """The plan's tensors by name: what :meth:`array_nbytes` counts and
+        the audit digest folds."""
+        return {"gather_padded": self.gather_padded, "seg_tiles": self.seg_tiles,
+                "m2out": self.m2out, "first_visit": self.first_visit}
+
     def array_nbytes(self) -> "dict":
         """Per-array device bytes held by this plan (exact)."""
-        return {
-            "gather_padded": _nbytes(self.gather_padded),
-            "seg_tiles": _nbytes(self.seg_tiles),
-            "m2out": _nbytes(self.m2out),
-            "first_visit": _nbytes(self.first_visit),
-        }
+        return {k: _nbytes(t) for k, t in self.named_arrays().items()}
+
+    def clone(self) -> "TilePlan":
+        """The same plan in fresh storage (device-to-device copies on the
+        current stream): a patch of the clone leaves this plan as it is."""
+        return dataclasses.replace(
+            self, **{k: t.clone() for k, t in self.named_arrays().items()})
 
     def plan_nbytes(self) -> int:
         return sum(self.array_nbytes().values())
@@ -168,7 +175,8 @@ def patch_tile_plan(
     The shape-stable path writes the changed groups **in place** into the
     live ``gather_padded`` / ``seg_tiles`` tensors (``index_copy_``), so the
     returned plan shares them with ``plan``: a holder of the old plan sees
-    the patched rows.
+    the patched rows (:meth:`repro_torch.core.api.Session.update` patches a
+    :meth:`TilePlan.clone` instead while a live view holds the plan).
     """
     gather_idx = np.asarray(gather_idx, np.int32)
     segment_ids = np.asarray(segment_ids, np.int64)

@@ -512,3 +512,103 @@ def test_topological_session_on_card_matches_host_index(cuda):
         srcs = order[:20]
         ok = ~sess.graph.contains_edges(srcs, heads)
         sess.update(UpdateBatch.inserts(srcs[ok], heads[ok]))
+
+# ---------------------------------------------------------------------- #
+#  The serving tier: a flusher thread serves while another thread updates
+# ---------------------------------------------------------------------- #
+KHOP_AGGS = ("sum", "count", "avg", "min", "max")
+
+
+def khop_batch(g, rng, ins=6, dels=3):
+    """``ins`` random inserts and ``dels`` deletes of existing edges, as
+    (src, dst, op) arrays either package's ``UpdateBatch`` takes."""
+    e = rng.choice(g.n_edges, dels, replace=False)
+    return (np.concatenate([rng.integers(0, g.n, ins), g.src[e]]).astype(np.int32),
+            np.concatenate([rng.integers(0, g.n, ins), g.dst[e]]).astype(np.int32),
+            np.concatenate([np.ones(ins, np.int8), -np.ones(dels, np.int8)]))
+
+
+def concurrent_service_check(dev, n=600, batches=5, seed=21):
+    """An ``AsyncWindowService`` whose flusher thread serves point and
+    explicit-values reads from a client thread while the calling thread
+    applies ``batches`` updates (each after the client has submitted 12
+    more tickets); returns (tickets, errors, versions served, session).
+    Every ticket must be bitwise its version's expectation, from the host
+    index of that version (immutable, kept per version)."""
+    import threading
+    import time
+
+    import repro_torch.core.api as api
+    import repro_torch.serve.window_service as ws
+    from repro_torch.core import updates
+    from repro_torch.graphs import generators as gen
+
+    g = gen.with_random_attrs(gen.erdos_renyi(n, 4.0, seed=seed), seed=seed + 1)
+    sess = api.Session(g, [api.QuerySpec(api.KHopWindow(2), a) for a in KHOP_AGGS],
+                       plan_headroom=1.0, torch_device=dev)
+    (state,) = sess._states.values()
+    indices = {0: (state.index, sess.graph)}
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(0, 100, (4, n)).astype(np.float64)
+    tickets, stop = [], threading.Event()
+
+    def client():
+        crng = np.random.default_rng(seed + 7)
+        while not stop.is_set():
+            si = int(crng.integers(len(KHOP_AGGS)))
+            v = int(crng.integers(n))
+            j = int(crng.integers(len(vals) + 1))
+            tickets.append(svc.submit(si, vertex=v, values=vals[j] if j < len(vals) else None,
+                                      request_class="point"))
+            time.sleep(0.0005)
+
+    def wait_for(count):
+        deadline = time.monotonic() + 120
+        while len(tickets) < count:
+            assert th.is_alive() and time.monotonic() < deadline, "the client stopped"
+            time.sleep(0.001)
+
+    with ws.AsyncWindowService(sess, bucket=8, max_pending=64) as svc:
+        th = threading.Thread(target=client, daemon=True)
+        th.start()
+        try:
+            for i in range(batches):
+                wait_for(12 * (i + 1))
+                svc.update(updates.UpdateBatch(*khop_batch(sess.graph, rng)))
+                indices[sess.version] = (state.index, sess.graph)
+            wait_for(12 * (batches + 1))
+        finally:
+            stop.set()
+            th.join(timeout=60)
+    expect = {}
+
+    def expected(version, values):
+        key = (version, None if values is None else values.tobytes())
+        if key not in expect:
+            index, graph = indices[version]
+            v = graph.attrs["val"] if values is None else values.astype(np.float64)
+            out = {a: index.query(v, a).astype(np.float32) for a in ("sum", "count", "min", "max")}
+            out["avg"] = out["sum"] / np.maximum(out["count"], np.float32(1e-30))
+            expect[key] = out
+        return expect[key]
+
+    errors = []
+    for t in tickets:
+        res = t.get(timeout=30)
+        want = expected(t.version, t.values)[KHOP_AGGS[t.spec_index]][t.vertex]
+        if np.float32(res).tobytes() != want.tobytes():
+            errors.append((t.rid, t.version, t.spec_index, t.vertex, res, want))
+    return len(tickets), errors, {t.version for t in tickets}, sess
+
+
+def test_async_service_on_card_serves_bitwise_while_another_thread_updates(cuda):
+    """The flusher launches K1 on the card while the main thread patches
+    plans (copy-on-write while the flusher's view holds one): every ticket
+    bitwise its version's host-index expectation."""
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
+
+    before = segment_sum_tiled.launches
+    checked, errors, versions, sess = concurrent_service_check(cuda, n=3000)
+    assert checked >= 64 and errors == []
+    assert len(versions) >= 2 and sess.plan_clones >= 1
+    assert segment_sum_tiled.launches > before

@@ -46,3 +46,19 @@ def test_no_source_imports_jax_or_reference():
         or "import repro." in line or "from repro import" in line
     ]
     assert offenders == []
+
+
+@pytest.mark.parametrize("module", ["repro_torch.serve", "repro_torch.obs.audit"])
+def test_serving_tier_imports_stand_alone(module):
+    """The serving tier (service, WAL, checkpoints) and the audit module
+    load neither JAX nor the reference package on their own."""
+    probe = (f"import sys, {module}\n"
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run(
+        [sys.executable, "-c", probe], capture_output=True, text=True,
+        timeout=120, cwd=PKG.parents[1],
+        env={**os.environ, "PYTHONPATH": str(PKG.parent)},
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

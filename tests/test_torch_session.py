@@ -221,13 +221,60 @@ def test_session_needs_cuda_unless_asked_for_cpu():
         p_api.Session(g, [p_api.QuerySpec(p_api.KHopWindow(1), "sum")])
 
 
-def test_overtaken_view_raises():
-    _, ps = _pair("er300", 1)
+def _plan_ptrs(plan) -> dict:
+    return {k: t.data_ptr() for k, t in plan.named_arrays().items()}
+
+
+def test_pinned_view_answers_at_its_version_across_three_updates():
+    """Copy-on-write: the first update clones the plan the view holds and
+    patches the clone, so the view answers bitwise as a fresh session on
+    its version's graph after three updates, run() and run_many() alike,
+    with no new plan signature; the head answers at the head."""
+    rs, ps = _pair("er300", 2, plan_headroom=1.0)
+    g0 = ps.graph
+    vb = np.random.default_rng(5).integers(0, 100, (3, g0.n)).astype(np.float64)
     view = ps.snapshot()
-    ps.update(p_updates.UpdateBatch.inserts([0], [5]))
-    with pytest.raises(RuntimeError, match="overtaken"):
-        view.run()
-    assert len(ps.snapshot().run()) == len(AGGS)
+    view.run(), view.run_many(vb)
+    held = _plan_ptrs(_state(ps).plan)
+    count0 = p_api.recompile_count()
+    for s, d, op in _batches(lambda: (ps.graph.src, ps.graph.dst), g0.n,
+                             seed=21, count=3, ins=4, dels=2):
+        rep = ps.update(p_updates.UpdateBatch(s, d, op))
+        rs.update(r_updates.UpdateBatch(s, d, op))
+        assert rep["khop[2]/dbindex"]["plan_clone_bytes"] == (
+            _state(ps).plan.plan_nbytes() if ps.version == 1 else 0)
+    assert ps.plan_clones == 1 and view.version == 0 and ps.version == 3
+    assert _plan_ptrs(view.artifacts[0][0][1]) == held  # the view's plan kept its storage
+    pinned = view.run(), view.run_many(vb)
+    assert p_api.recompile_count() == count0
+    fresh = p_api.Session(g0, [p_api.QuerySpec(p_api.KHopWindow(2), a) for a in AGGS],
+                          torch_device="cpu")
+    for got, want in zip(pinned, (fresh.run(), fresh.run_many(vb))):
+        for a, x, y in zip(AGGS, got, want):
+            assert x.dtype == y.dtype and np.array_equal(x, y), a
+    for a, x, y in zip(AGGS, ps.run(), rs.run()):
+        assert np.array_equal(x, y), a
+
+
+def test_update_without_live_view_patches_in_place():
+    """With no live view (``run()``'s view dies with the call) the plan is
+    patched in place: every plan tensor keeps its storage, nothing is
+    cloned, and the results still match the reference."""
+    rs, ps = _pair("er300", 1, plan_headroom=1.0)
+    ps.run()
+    before = _plan_ptrs(_state(ps).plan)
+    for s, d, op in _batches(lambda: (ps.graph.src, ps.graph.dst), ps.graph.n,
+                             seed=22, count=3, ins=2, dels=2):
+        rep = ps.update(p_updates.UpdateBatch(s, d, op))
+        rs.update(r_updates.UpdateBatch(s, d, op))
+        assert rep["khop[1]/dbindex"]["plan_clone_bytes"] == 0
+        for a, x, y in zip(AGGS, ps.run(), rs.run()):
+            assert np.array_equal(x, y), a
+    after = _plan_ptrs(_state(ps).plan)
+    patched_in_place = ("pass1.gather_padded", "pass1.seg_tiles", "pass2.gather_padded",
+                        "pass2.seg_tiles", "p1_ell", "p2_ell")
+    assert {k: after[k] for k in patched_in_place} == {k: before[k] for k in patched_in_place}
+    assert ps.plan_clones == 0 and ps.plan_clone_bytes == 0
 
 
 def test_session_records_metrics_and_spans():
