@@ -4,7 +4,8 @@
     python3 chip_smoke.py    # full width: ER n=100k, degree 10, KHop(2),
                              # served by the window service with a WAL;
                              # the topological window on a 60k DAG;
-                             # qwen3-0.6b serving; the Criteo-shaped FM
+                             # qwen3-0.6b serving; the Criteo-shaped FM;
+                             # a two-follower cluster on ER n=30k
 
 Phases, one JSON object per line:
 
@@ -61,6 +62,17 @@ Phases, one JSON object per line:
    ``Session.restore_from_wal(..., checkpoint=...)`` (one more host EMC
    build and the WAL's tail), bitwise the live ``run()`` with an equal
    ``graph_crc``: checkpoint write and load, rebuild and replay times.
+7b. ``explain_analyze`` — ``Session.explain()`` on the same session (engine
+   ``torch``, every other candidate's reason, the footprint equal to the
+   plan tensors' ``numel() * element_size()``, the anatomy), then
+   ``Session.analyze()`` twice, the second counted (K1's and the scan's
+   counts reset just before, read just after): the phases ``host_prep``,
+   ``pass1_reduce``, ``pass2_reduce``, ``finalize``, exactly 2 K1 launches,
+   no new plan signature, results bitwise ``run()``'s (the serving phase's
+   result cache detached first); each phase's ms, the attribution and the
+   wall ms.  The same on the topological session after phase 11
+   (``host_prep``, ``wd_reduce``, ``inherit``, ``finalize``; 1 K1 and 1
+   scan launch).
 8. ``topo_index`` — the topological window's DAG (``TOPO_DAG``: random_dag
    n = 60,000, degree 10, locality 200, the graph of
    ``benchmarks/bench_iindex.py``; integer attributes in [0, 100) from a
@@ -116,6 +128,27 @@ Phases, one JSON object per line:
     kernel on 512 and 262,144 id rows over the whole int32 range; K4's count
     reset just before and read just after (one per forward); each result
     against the plain forward, a small batch against float64 NumPy.
+15b. ``cluster`` — the cluster tier on a graph and a generator of its own
+    (ER n = 30,000, degree 10, ``CLUSTER_N``: cut from 100,000 by the
+    run's time, four host EMC builds): ``ReplicaSet(n_replicas=2,
+    rotate_records=2, checkpoint_every=4, wal_digests=True)`` under the
+    deferred-phase-2 policy, started; a client thread routes point reads
+    and explicit-values full-graph reads (1 in 8) through the
+    ``WindowRouter``, every 4th with ``min_version`` the writer's version,
+    while 6 batches of 100 inserts and 25 deletes land; ``r1`` is killed
+    with 3 tickets in flight after the second (exactly those fail with
+    ``ReplicaFailedError``) and rejoins by checkpoint and tail after the
+    fifth.  Every served ticket bitwise the writer's host index of its
+    pinned version; after ``sync()`` every follower's ``run()`` bitwise
+    the writer's with an equal ``graph_crc``, digest checks > 0 and no
+    divergence; a sealed segment truncated and no cursor below the oldest
+    kept one; K1 and K2 launched (counts reset just before the load, read
+    just after); a ``HealthMonitor`` ready, failed while ``r1`` is dead
+    (quorum), ready after the rejoin; a ``HealthServer`` answering
+    ``/readyz`` 200, ``/metrics`` with ``repro_router_*`` and
+    ``repro_replica_*`` lines and ``/debug`` JSON.  Reads a second, p50 /
+    p99 by class and by target, lag, digest ms, each EMC build, the
+    rejoin's load, rebuild and tail, the phase's seconds.
 16. ``kernel:bitset_expand`` — K2 (last, so the 2 M-vertex graph of its
     shape (c) is not in the process while the paths above are timed) at
     three shapes, words and occupancy masks bitwise against its
@@ -1455,6 +1488,60 @@ def topo_profile(sess, state, dev, unprofiled_ms):
     return out
 
 
+def explain_analyze(sess, state, dev, phases, k1_per_run, scans_per_run):
+    """EXPLAIN and ANALYZE on a full-width session: the report's engine,
+    candidates and anatomy, its footprint against the plan's tensors; then
+    ``analyze()`` twice, the second counted (K1's and the scan's launches
+    reset just before, read just after) and checked: the port's phase set,
+    ``run()``'s launches, no new plan signature, results bitwise
+    ``run()``'s (the session's result cache detached, so ``run()``
+    launches too)."""
+    from repro_torch.core.api import recompile_count
+    from repro_torch.kernels.inherit_scan.inherit_scan import inherit_scan
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
+
+    sess._result_cache = None  # the serving phase's cache: run() launches again
+    t = time.perf_counter()
+    rep = sess.explain()
+    explain_ms = (time.perf_counter() - t) * 1e3
+    (grp,) = rep.groups
+    engine = {"khop": "torch", "topological": "torch-iindex"}[grp.window_kind]
+    check(grp.engine == engine, f"explain chose {grp.engine}, not {engine}")
+    check(all(c["reason"] for c in grp.candidates), "a candidate without a reason")
+    tensors = state.plan.named_arrays().values()
+    check(rep.total_plan_nbytes == sum(a.numel() * a.element_size() for a in tensors),
+          "explain's footprint is not the plan tensors' bytes")
+    (term,) = grp.terms
+    want = sess.run()
+    c0 = recompile_count()
+    sess.analyze()
+    segment_sum_tiled.launches = 0
+    inherit_scan.launches = 0
+    arep = sess.analyze()
+    launches = {"segment_sum": segment_sum_tiled.launches,
+                "inherit_scan": inherit_scan.launches}
+    check(launches == {"segment_sum": k1_per_run, "inherit_scan": scans_per_run},
+          f"analyze() made {launches}, not {k1_per_run} K1 and {scans_per_run} scan launches")
+    check(recompile_count() == c0, "analyze() recorded a plan signature")
+    got = {p["phase"] for p in arep.phases}
+    check(got == set(phases), f"analyze() phases {sorted(got)}, not {sorted(phases)}")
+    for (gi, ai), w in zip(sess.compiled.spec_slots, want):
+        r = arep.results[gi][sess.compiled.groups[gi].aggs[ai]]
+        check(r.dtype == w.dtype and r.tobytes() == w.tobytes(),
+              f"analyze() result {grp.aggs[ai]} differs from run()")
+    return {
+        "explain_ms": explain_ms, "engine": grp.engine,
+        "candidates": {c["name"]: c["reason"] for c in grp.candidates},
+        "lowering": grp.lowering["choice"], "total_plan_nbytes": rep.total_plan_nbytes,
+        "index": term.index, "plan": term.plan,
+        "analyze": {"wall_ms": arep.wall_s * 1e3, "attributed_ms": arep.attributed_s * 1e3,
+                    "attribution": arep.attribution,
+                    "phase_ms": {k: v * 1e3 for k, v in arep.phase_totals.items()},
+                    "rows": [[p["term"], p["phase"], p["seconds"] * 1e3] for p in arep.phases]},
+        "launches": launches,
+    }
+
+
 # ---------------------------------------------------------------------- #
 # K3 against flash_torch.  float32: within 1e-4 (the same float32
 # algorithm, summed in another order).  bf16: the kernel rounds p to bf16
@@ -1867,6 +1954,249 @@ def serve_fm(args, dev):
     return out, launches
 
 
+# ---------------------------------------------------------------------- #
+# The cluster tier: one writer, two followers tailing its segmented WAL,
+# reads placed by the router.  ER n = 30,000, degree 10, KHop(2), cut from
+# the k-hop phase's 100,000 by the run's time: the phase makes four host
+# EMC builds (the writer, two followers, one checkpoint rejoin), 67-88 s
+# each at n = 100,000
+CLUSTER_N = 30_000
+CLUSTER_BATCHES = 6
+CLUSTER_KILL_AFTER = 2  # r1 is killed after this many batches ...
+CLUSTER_REJOIN_AFTER = 5  # ... and rejoins after this many
+
+
+def cluster_phase(args, dev):
+    """The cluster tier on a graph and a generator of its own (no draw of
+    another phase shifts): ``ReplicaSet(n_replicas=2, rotate_records=2,
+    checkpoint_every=4, wal_digests=True)`` under the deferred-phase-2
+    policy, started; a client thread routes point reads and explicit-values
+    full-graph reads (1 in 8), every 4th read-your-writes, while 6 batches
+    land; ``r1`` is killed with tickets in flight after the second batch
+    and rejoins by checkpoint and tail after the fifth.  Every served
+    ticket is held bit for bit against the writer's host index of its
+    pinned version; the health monitor and its HTTP endpoint are read
+    along the way.  K1's and K2's counts are reset just before the load and
+    read just after."""
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.core.api import QuerySpec
+    from repro_torch.core.streaming import StalenessPolicy
+    from repro_torch.core.windows import KHopWindow
+    from repro_torch.graphs.generators import erdos_renyi, with_random_attrs
+    from repro_torch.kernels.bitset_expand.bitset_expand import bitset_expand_tiled
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
+    from repro_torch.obs.audit import graph_crc
+    from repro_torch.serve import (
+        HealthMonitor,
+        HealthServer,
+        ReplicaFailedError,
+        ReplicaSet,
+        latest_checkpoint,
+        load_checkpoint,
+        list_segments,
+    )
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 6)
+    g = with_random_attrs(erdos_renyi(CLUSTER_N, args.degree, directed=False,
+                                      seed=args.seed + 6), seed=args.seed + 7)
+    n = g.n
+    specs = [QuerySpec(KHopWindow(2), a) for a in AGGS]
+    policy = StalenessPolicy(max_link_ratio=float("inf"),
+                             max_block_ratio=float("inf"), max_garbage_ratio=1.0)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="cluster_", dir=os.path.join(ROOT, "build"))
+    reg = obs.MetricsRegistry()
+    t = time.perf_counter()
+    rs = ReplicaSet(g, specs, tmp, n_replicas=2, rotate_records=2, checkpoint_every=4,
+                    wal_digests=True, obs=reg, policy=policy, use_device_bfs=True,
+                    torch_device=dev)
+    build_s = time.perf_counter() - t
+
+    def emc_s(session):
+        (st,) = session._states.values()
+        return st.index.stats.get("t_total_s")
+
+    emc = {"writer": emc_s(rs.writer.session),
+           **{name: emc_s(rep.session) for name, rep in rs.replicas.items()}}
+    (wstate,) = rs.writer.session._states.values()
+    versions = {0: (wstate.index, rs.writer.session.graph)}
+    mon = HealthMonitor(cluster=rs)
+    health = {"before_kill": mon.check()["state"]}
+    check(health["before_kill"] == "ready", f"health before the kill: {mon.last_report}")
+    full_vals = rng.integers(0, 100, (4, n)).astype(np.float64)
+    tickets, stop, client_lock = [], threading.Event(), threading.Lock()
+    crng = np.random.default_rng(args.seed + 9)
+
+    def client():
+        i = 0
+        while not stop.is_set():
+            with client_lock:
+                for _ in range(4):
+                    si = int(crng.integers(len(specs)))
+                    ryw = rs.version if i % 4 == 3 else None
+                    if i % 8 == 7:  # a full-graph read on the caller's values
+                        j = i // 8 % len(full_vals)
+                        tk = rs.router.submit(si, values=full_vals[j], min_version=ryw,
+                                              request_class="interactive")
+                        tickets.append((tk, "interactive", j))
+                    else:
+                        tk = rs.router.submit(si, vertex=int(crng.integers(n)),
+                                              min_version=ryw, request_class="point")
+                        tickets.append((tk, "point", None))
+                    i += 1
+                rs.router.flush()
+            time.sleep(0.01)
+
+    segment_sum_tiled.launches = 0
+    bitset_expand_tiled.launches = 0
+    rs.start(tail_interval_s=0.05)
+    th = threading.Thread(target=client, name="cluster-client", daemon=True)
+    lags, failover, rejoin, update_ms = [], None, None, []
+    t_load = time.perf_counter()
+    th.start()
+    try:
+        for b in range(1, CLUSTER_BATCHES + 1):
+            time.sleep(0.25)  # reads run at this version
+            batch = make_batch(rs.writer.session.graph, args, rng)
+            t = time.perf_counter()
+            rs.update(batch)
+            update_ms.append((time.perf_counter() - t) * 1e3)
+            versions[rs.version] = (wstate.index, rs.writer.session.graph)
+            lags.append({name: rep.lag for name, rep in rs.live_replicas.items()})
+            if b == CLUSTER_KILL_AFTER:
+                with client_lock:  # tickets in flight on r1 when it dies
+                    doomed = [rs.router.submit(0, vertex=v, target="r1") for v in range(3)]
+                    failed = rs.kill("r1")
+                health["r1_dead"] = mon.check()
+                check(health["r1_dead"]["state"] == "failed"
+                      and "quorum" in health["r1_dead"]["failing"],
+                      f"health with r1 dead: {health['r1_dead']}")
+                health["r1_dead"] = health["r1_dead"]["state"]
+                failover = {"failed": failed, "doomed_failed": all(d.failed for d in doomed)}
+                check(failover["doomed_failed"], "a ticket in flight on r1 did not fail over")
+            if b == CLUSTER_REJOIN_AFTER:
+                t = time.perf_counter()
+                _, _, _ = load_checkpoint(latest_checkpoint(rs.checkpoint_dir)[1])
+                load_s = time.perf_counter() - t
+                t = time.perf_counter()
+                rep = rs.rejoin("r1", catch_up=False)
+                rebuild_s = time.perf_counter() - t
+                t = time.perf_counter()
+                rs.wal.sync()
+                tail = rep.catch_up()
+                tail_s = time.perf_counter() - t
+                rep.start_tailing(interval_s=0.05)
+                emc["r1_rejoin"] = emc_s(rep.session)
+                rejoin = {"from_version": rep.restored_from_version, "tail_batches": tail,
+                          "load_s": load_s, "rebuild_s": rebuild_s, "tail_s": tail_s,
+                          "rejoin_s": rebuild_s + tail_s}
+                health["after_rejoin"] = mon.check()["state"]
+                check(health["after_rejoin"] == "ready",
+                      f"health after the rejoin: {mon.last_report}")
+        time.sleep(0.25)
+    finally:
+        stop.set()
+        th.join(timeout=60)
+    load_s_total = time.perf_counter() - t_load
+    check(not th.is_alive(), "the client thread did not stop")
+    for rep in rs.replicas.values():
+        rep.stop_tailing()
+    rs.writer.stop(drain=True)
+    rs.router.flush()
+    rs.sync()
+    lags.append({name: rep.lag for name, rep in rs.live_replicas.items()})
+    launches = {"segment_sum": segment_sum_tiled.launches,
+                "bitset_expand": bitset_expand_tiled.launches}
+    check(launches["segment_sum"] > 0, "the cluster's routed reads launched no K1")
+    check(launches["bitset_expand"] > 0, "the cluster's updates launched no K2")
+
+    # every served ticket against the writer's host index of its version
+    expected, lat, by_target, failed_tickets = {}, {}, {}, 0
+    for tk, cls, j in tickets:
+        check(tk.done, f"ticket {tk.rid} never finished")
+        if tk.error is not None:
+            check(isinstance(tk.error, ReplicaFailedError) and tk._route_target == "r1",
+                  f"ticket {tk.rid} on {tk._route_target} failed: {tk.error!r}")
+            failed_tickets += 1
+            continue
+        key = (tk.version, j)
+        if key not in expected:
+            index, graph = versions[tk.version]
+            expected[key] = host_expect(index, graph.attrs["val"] if j is None else full_vals[j])
+        agg = AGGS[tk.spec_index]
+        want = expected[key][agg]
+        check(served_ok(agg, tk.result, want if tk.vertex is None else want[tk.vertex]),
+              f"ticket {tk.rid} ({agg}, {cls}) from {tk._route_target or 'writer'} at "
+              f"v{tk.version} differs from the host index")
+        lat.setdefault(cls, []).append(tk.latency_s * 1e3)
+        by_target.setdefault(tk._route_target or "writer", []).append(tk.latency_s * 1e3)
+    failover["client_tickets_failed"] = failed_tickets
+
+    # the followers equal the writer; truncation left every cursor readable
+    wrun = rs.writer.session.run()
+    for name, rep in rs.replicas.items():
+        check(rep.alive and rep.version == rs.version, f"{name} at v{rep.version}")
+        check(rep.digest_checks > 0 and rep.divergence is None,
+              f"{name}: {rep.digest_checks} digest checks, divergence {rep.divergence}")
+        for a, x, y in zip(AGGS, rep.session.run(), wrun):
+            check(x.dtype == y.dtype and x.tobytes() == y.tobytes(), f"{name} run() differs: {a}")
+        check(graph_crc(rep.session.graph) == graph_crc(rs.writer.session.graph),
+              f"{name} graph_crc differs")
+    truncated_in_load = rs.wal.truncated_segments
+    rs.truncate()  # the checkpoint's truncation, now that every follower is past it
+    oldest = list_segments(rs.wal_dir)[0][0]
+    check(rs.wal.truncated_segments >= 1, "no sealed segment was truncated")
+    for name, rep in rs.replicas.items():
+        check(rep.cursor["segment"] >= oldest,
+              f"{name}'s cursor {rep.cursor} points below the oldest segment {oldest}")
+    health["after_sync"] = mon.check()["state"]
+    check(health["after_sync"] == "ready", f"health after sync: {mon.last_report}")
+    with HealthServer(mon, registry=reg) as hs:
+        r = urllib.request.urlopen(hs.url + "/readyz", timeout=30)
+        ready = (r.status, json.loads(r.read()))
+        metrics = urllib.request.urlopen(hs.url + "/metrics", timeout=30).read().decode()
+        debug = json.loads(urllib.request.urlopen(hs.url + "/debug", timeout=120).read())
+    check(ready[0] == 200 and ready[1]["ready"], f"/readyz answered {ready}")
+    for prefix in ("repro_router_", "repro_replica_"):
+        check(any(ln.startswith(prefix) for ln in metrics.splitlines()),
+              f"/metrics has no {prefix}* line")
+    check(set(debug["cluster"]["replicas"]) == {"r0", "r1"}, "/debug lacks the replicas")
+    check(not hs.running, "the health server did not stop")
+    served = sum(len(v) for v in lat.values())
+    out = {
+        "n": n, "edges": g.n_edges, "replicas": 2, "batches": CLUSTER_BATCHES,
+        "edits_per_batch": args.inserts + args.deletes,
+        "build_s": build_s, "emc_build_s": emc,
+        "reads": served, "reads_per_s": served / load_s_total, "load_s": load_s_total,
+        "latency_ms": {c: {"p50": float(np.percentile(v, 50)), "p99": float(np.percentile(v, 99)),
+                           "count": len(v)} for c, v in sorted(lat.items())},
+        "latency_ms_by_target": {c: {"p50": float(np.percentile(v, 50)),
+                                     "p99": float(np.percentile(v, 99)), "count": len(v)}
+                                 for c, v in sorted(by_target.items())},
+        "update_ms": update_ms, "failover": failover, "rejoin": rejoin,
+        "lag_after_each_update": lags[:-1], "lag_after_sync": lags[-1],
+        "digest_checks": {name: rep.digest_checks for name, rep in rs.replicas.items()},
+        "digest_ms": wall_ms(lambda: rs.writer.session.digest(), dev, 3),
+        "truncated_segments": {"during_load": truncated_in_load,
+                               "after_sync": rs.wal.truncated_segments},
+        "checkpoints": rs.checkpoints_written, "rotations": rs.wal.rotations,
+        "router": rs.router.stats, "health": health,
+        "writer_slo": rs.writer.slo.report(), "launches": launches,
+    }
+    rs.close()
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1942,6 +2272,10 @@ def run(args, dev) -> None:
     check(served["launches"]["bitset_expand"] > 0, "the serving path launched no K2")
     for name, count in served["launches"].items():
         launches[name] += count
+    ea = explain_analyze(sess, state, dev, ("host_prep", "pass1_reduce", "pass2_reduce",
+                                            "finalize"), 2, 0)
+    emit({"phase": "explain_analyze", "window": "KHop(2)", **ea})
+    launches["segment_sum"] += ea["launches"]["segment_sum"]
     del sess, state, plan
 
     # the topological window, on a generator of its own (no draw of the
@@ -1955,8 +2289,12 @@ def run(args, dev) -> None:
     emit({"phase": "topo_session", **tmain})
     tprof = topo_profile(tsess, tstate, dev, tmain["run_ms"])
     emit({"phase": "topo_profile", "run": tprof})
-    launches["segment_sum"] += tmain["launches"]["segment_sum"]
-    launches["inherit_scan"] = tmain["launches"]["inherit_scan"]
+    tea = explain_analyze(tsess, tstate, dev, ("host_prep", "wd_reduce", "inherit",
+                                               "finalize"), 1, 1)
+    emit({"phase": "explain_analyze", "window": "TopologicalWindow()", **tea})
+    launches["segment_sum"] += tmain["launches"]["segment_sum"] + tea["launches"]["segment_sum"]
+    launches["inherit_scan"] = (tmain["launches"]["inherit_scan"]
+                                + tea["launches"]["inherit_scan"])
     check(launches["inherit_scan"] > 0, "the topological path launched no scan")
     del tsess, tstate
 
@@ -1971,6 +2309,12 @@ def run(args, dev) -> None:
     emit({"phase": "serve_lm", **lm})
     fm, launches["fm_interaction"] = serve_fm(args, dev)
     emit({"phase": "serve_fm", **fm})
+    # after the timed serving paths, before K2's 2 M-vertex graph: a graph
+    # and a generator of its own
+    cluster = cluster_phase(args, dev)
+    emit({"phase": "cluster", **cluster})
+    for name, count in cluster["launches"].items():
+        launches[name] += count
     # last: the 2 M-vertex graph of its shape (c) would otherwise sit in
     # this process while the end-to-end paths above are timed
     k2_shapes = kernel_bitset_expand(g, args, dev, k2_rng, b_seeds)

@@ -835,6 +835,33 @@ class Session:
         return self.snapshot().run_many(values_batch)
 
     # ------------------------------------------------------------------ #
+    #  EXPLAIN / ANALYZE (repro_torch.obs.explain / repro_torch.obs.profile)
+    # ------------------------------------------------------------------ #
+    def explain(self, spec=None):
+        """EXPLAIN: the compiled plan as a structured
+        :class:`~repro_torch.obs.explain.PlanReport` — engine resolution
+        with rejected candidates, per-(expr, monoid set) lowering choice,
+        plan anatomy and exact per-array device footprint — without
+        executing anything.  ``spec`` optionally narrows to one group (an
+        index, a :class:`QuerySpec`, or a window spec)."""
+        from repro_torch.obs.explain import explain_session
+
+        return explain_session(self, spec)
+
+    def analyze(self, spec=None, values=None):
+        """ANALYZE: execute the selected groups once under a
+        phase-profiled scope and return an
+        :class:`~repro_torch.obs.profile.AnalyzeReport` attributing wall
+        time to named phases around the port's launches (host prep, K1's
+        pass 1 and pass 2 or its window-difference pass, the inheritance
+        scan, finalize, host combine), with each group's results.  It
+        launches the fused executors' own kernels but records no plan
+        signature, so it never moves :func:`recompile_count`."""
+        from repro_torch.obs.profile import analyze_session
+
+        return analyze_session(self, spec, values=values)
+
+    # ------------------------------------------------------------------ #
     def digest(self, include_results: bool = False) -> Dict:
         """Per-version content digest (crc32 over graph + plan arrays,
         optionally the result vectors) — the leader/follower self-check

@@ -378,12 +378,26 @@ def _query_dbindex_multi_channels(plan: DBIndexPlan, values: torch.Tensor,
     _SIGNATURES.add((plan.shape_signature(), aggs, tuple(values.shape),
                      str(plan.device)))
     pack = pack_channels(aggs)
-    b = values.shape[1]
+    return dbindex_pass2(plan, dbindex_pass1(plan, values, pack), pack)
+
+
+def _k1_channels(pack, ell: bool) -> tuple:
+    """``(monoid_of, order)``: each channel's monoid, and the channels K1
+    reduces in its column groups (sum, then min, then max; min/max only
+    when the plan has no ELL layouts)."""
     monoid_of = {ci: m for ci, (m, _) in enumerate(pack.channels)}
+    order = [ci for m in ("sum", "min", "max") for ci in monoid_of
+             if monoid_of[ci] == m and (m == "sum" or not ell)]
+    return monoid_of, order
+
+
+def dbindex_pass1(plan: DBIndexPlan, values: torch.Tensor, pack) -> dict:
+    """Pass 1 (members → block partials) of the fused DBIndex query over a
+    ``[n, B]`` float32 column batch: one K1 launch over the stacked
+    value/square columns, the gather fused in; ``{channel: [cap, B]}``."""
+    b = values.shape[1]
     ell = plan.p1_ell is not None
-    # K1's column groups: sum, then min, then max
-    k1 = [ci for m in ("sum", "min", "max") for ci in monoid_of
-          if monoid_of[ci] == m and (m == "sum" or not ell)]
+    monoid_of, k1 = _k1_channels(pack, ell)
     squares = None
 
     def source(src: str) -> torch.Tensor:
@@ -394,7 +408,6 @@ def _query_dbindex_multi_channels(plan: DBIndexPlan, values: torch.Tensor,
             squares = values * values
         return squares
 
-    # ---- pass 1: one launch over the stacked value/square columns ------ #
     gathered = {ci: source(pack.channels[ci][1]) for ci in k1
                 if pack.channels[ci] != ("sum", "ones")}
     t_cols = _stacked_pass(plan.pass1, gathered,
@@ -407,9 +420,17 @@ def _query_dbindex_multi_channels(plan: DBIndexPlan, values: torch.Tensor,
         for ci, (mname, src) in enumerate(pack.channels):
             if mname != "sum":
                 t_cols[ci] = _ell_reduce(plan.p1_ell, source(src), mname)
+    return t_cols
 
-    # ---- pass 2: one launch over the stacked partial matrix; with ELL
-    # layouts min/max take the dense gather (idempotent, order-insensitive) #
+
+def dbindex_pass2(plan: DBIndexPlan, t_cols: dict, pack) -> tuple:
+    """Pass 2 (block partials → owner windows): one K1 launch over the
+    stacked partial matrix; with ELL layouts min/max take the dense gather
+    (idempotent, order-insensitive).  Returns the channels, each
+    ``[n, B]``."""
+    b = next(iter(t_cols.values())).shape[1]
+    ell = plan.p1_ell is not None
+    monoid_of, k1 = _k1_channels(pack, ell)
     outs = _stacked_pass(plan.pass2, t_cols, k1, b, monoid_of)
     if ell:
         for ci, (mname, _) in enumerate(pack.channels):
@@ -575,10 +596,15 @@ def _query_iindex_multi_channels(plan: IIndexPlan, values: torch.Tensor,
     _SIGNATURES.add((plan.shape_signature(), aggs, tuple(values.shape),
                      str(plan.device), schedule))
     pack = pack_channels(aggs)
+    return iindex_inherit(plan, iindex_wd_reduce(plan, values, pack), pack, schedule)
+
+
+def iindex_wd_reduce(plan: IIndexPlan, values: torch.Tensor, pack) -> torch.Tensor:
+    """The window-difference partials of every channel of a ``[n, B]``
+    float32 column batch, stacked ``[n, C·B]`` by monoid (sum, then min,
+    then max): one K1 launch on ``wd_plan``, the gather fused in."""
     b = values.shape[1]
-    monoid_of = {ci: m for ci, (m, _) in enumerate(pack.channels)}
-    by_monoid = [ci for m in ("sum", "min", "max") for ci in monoid_of
-                 if monoid_of[ci] == m]
+    monoid_of, by_monoid = _k1_channels(pack, ell=False)
     srcs = {"value": values}
     if any(src == "square" for _, src in pack.channels):
         srcs["square"] = values * values
@@ -589,9 +615,18 @@ def _query_iindex_multi_channels(plan: IIndexPlan, values: torch.Tensor,
     for ci in by_monoid:
         if ci not in gathered:  # window-difference sizes are host-exact
             wdp[ci] = plan.wd_sizes[:, None].expand(-1, b)
+    return torch.cat([wdp[ci] for ci in by_monoid], dim=1)
+
+
+def iindex_inherit(plan: IIndexPlan, mat: torch.Tensor, pack,
+                   schedule: str = "level") -> tuple:
+    """Inheritance along the PID forest of :func:`iindex_wd_reduce`'s
+    matrix: one scan launch over every column, each with its monoid.
+    Returns the channels, each ``[n, B]``."""
+    monoid_of, by_monoid = _k1_channels(pack, ell=False)
+    b = mat.shape[1] // len(by_monoid)
     counts = tuple(b * sum(monoid_of[ci] == m for ci in by_monoid)
                    for m in ("sum", "min", "max"))
-    mat = torch.cat([wdp[ci] for ci in by_monoid], dim=1)
     done = inherit(mat, plan.forest, counts, schedule)
     out = {ci: done[:, j * b:(j + 1) * b] for j, ci in enumerate(by_monoid)}
     return tuple(out[ci] for ci in range(len(pack.channels)))

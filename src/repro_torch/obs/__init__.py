@@ -53,7 +53,20 @@ __all__ = [
     "Tracer", "NullTracer", "Span", "SLOTracker",
     "DEFAULT_LATENCY_BUCKETS_S", "DEFAULT_SIZE_BUCKETS",
     "get_registry", "get_tracer", "enable", "disable",
+    "explain_session", "analyze_session", "PlanReport", "AnalyzeReport",
 ]
+
+
+def __getattr__(name):
+    # lazy: explain/profile import the plan classes they inspect (and
+    # torch); keep plain `import repro_torch.obs` cheap
+    if name in ("explain_session", "PlanReport"):
+        from . import explain as _explain
+        return getattr(_explain, name)
+    if name in ("analyze_session", "AnalyzeReport"):
+        from . import profile as _profile
+        return getattr(_profile, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 _NULL_REGISTRY = NullRegistry()

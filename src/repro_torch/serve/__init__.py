@@ -20,8 +20,20 @@
   package's log.
 * :mod:`~repro_torch.serve.checkpoint` — pickle-free snapshot checkpoints
   so recovery is checkpoint-load + bounded tail replay.
+* :class:`~repro_torch.serve.replica.ReadReplica` — follower session
+  tailing the WAL by byte offset or ``(segment, offset)`` cursor (pinned
+  reads, explicit catch-up + flip, digest self-check, checkpoint rejoin).
+* :class:`~repro_torch.serve.cluster.ReplicaSet` /
+  :class:`~repro_torch.serve.cluster.WindowRouter` — the cluster tier: one
+  writer + N auto-catch-up followers, freshness/load routing with MVCC
+  pinning and failover, checkpoint + truncation policy.
 * :class:`~repro_torch.serve.flight.FlightRecorder` — bounded ring of
   structured serving events, dumped automatically when a ticket fails.
+* :class:`~repro_torch.serve.health.HealthMonitor` /
+  :class:`~repro_torch.serve.health.HealthServer` — liveness/readiness
+  state machine over pressure, lag, SLO, quorum, audit and scrub signals,
+  served over stdlib HTTP (``/metrics`` ``/healthz`` ``/readyz``
+  ``/debug``).
 """
 
 from repro_torch.serve.checkpoint import (  # noqa: F401
@@ -32,8 +44,20 @@ from repro_torch.serve.checkpoint import (  # noqa: F401
     load_checkpoint,
     save_checkpoint,
 )
+from repro_torch.serve.cluster import (  # noqa: F401
+    ReplicaFailedError,
+    ReplicaSet,
+    RoutingError,
+    WindowRouter,
+)
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: F401
 from repro_torch.serve.flight import FlightRecorder  # noqa: F401
+from repro_torch.serve.health import (  # noqa: F401
+    HealthMonitor,
+    HealthServer,
+    all_monitors,
+)
+from repro_torch.serve.replica import ReadReplica  # noqa: F401
 from repro_torch.serve.wal import (  # noqa: F401
     SegmentedWriteAheadLog,
     WalTruncatedError,

@@ -659,10 +659,8 @@ class WindowService:
                                    if launched_rows else 0.0),
             },
             "staleness": self.session.staleness,
-            "plan_footprint_bytes": sum(
-                int(eng.plan.plan_nbytes())
-                for eng in self.session._states.values()
-                if getattr(eng, "plan", None) is not None),
+            "plan_footprint_bytes": int(
+                self.session.explain().total_plan_nbytes),
             "flight": {
                 "capacity": self.flight.capacity,
                 "dropped": self.flight.dropped,

@@ -612,3 +612,88 @@ def test_async_service_on_card_serves_bitwise_while_another_thread_updates(cuda)
     assert checked >= 64 and errors == []
     assert len(versions) >= 2 and sess.plan_clones >= 1
     assert segment_sum_tiled.launches > before
+
+
+# ---------------------------------------------------------------------- #
+#  The cluster tier and ANALYZE on the card
+# ---------------------------------------------------------------------- #
+def test_replica_set_on_card_serves_bitwise(cuda, tmp_path):
+    """A two-replica cluster on the card: every follower's update() runs
+    the affected-owner BFS on K2, routed reads run K1, and every routed
+    read equals the host index of its pinned version; a killed replica's
+    tickets fail over and its checkpoint rejoin equals the writer."""
+    from repro_torch.core import api
+    from repro_torch.core import updates
+    from repro_torch.graphs import generators as gen
+    from repro_torch.kernels.bitset_expand.bitset_expand import bitset_expand_tiled
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
+    from repro_torch.obs.audit import graph_crc
+    from repro_torch.serve import ReplicaFailedError, ReplicaSet
+
+    g = gen.with_random_attrs(gen.erdos_renyi(3000, 4.0, seed=31), seed=32)
+    specs = [api.QuerySpec(api.KHopWindow(2), a) for a in KHOP_AGGS]
+    rs = ReplicaSet(g, specs, tmp_path / "c", n_replicas=2, rotate_records=2,
+                    checkpoint_every=2, use_device_bfs=True, torch_device=cuda)
+    versions = {0: rs.writer.session.graph}
+    rng = np.random.default_rng(33)
+    k1, k2 = segment_sum_tiled.launches, bitset_expand_tiled.launches
+    tickets = []
+    for i in range(4):
+        rs.update(updates.UpdateBatch(*khop_batch(rs.writer.session.graph, rng)))
+        versions[rs.version] = rs.writer.session.graph
+        rs.sync()
+        if i == 1:
+            doomed = rs.router.submit(0, vertex=1, target="r1")
+            assert rs.kill("r1") == 1 and doomed.failed
+            with pytest.raises(ReplicaFailedError):
+                doomed.get(timeout=1)
+        tickets += [rs.router.submit(si, vertex=int(v)) for si in range(len(specs))
+                    for v in rng.integers(0, g.n, 3)]
+        rs.router.flush()
+    assert bitset_expand_tiled.launches - k2 >= 2 * 4 + 2  # writer + replicas, every update
+    assert segment_sum_tiled.launches > k1
+    oracle = {}
+    for t in tickets:
+        if t.version not in oracle:
+            idx = api.Session(versions[t.version], specs, torch_device="cpu")
+            oracle[t.version] = idx.run()
+        assert np.float32(t.get(timeout=30)).tobytes() == \
+            oracle[t.version][t.spec_index][t.vertex].tobytes()
+    rep = rs.rejoin("r1")
+    rs.sync()
+    assert rep.restored_from_version >= 2 and rep.divergence is None
+    for x, y in zip(rep.session.run(), rs.writer.session.run()):
+        assert x.tobytes() == y.tobytes()
+    assert graph_crc(rep.session.graph) == graph_crc(rs.writer.session.graph)
+    rs.close()
+
+
+def test_analyze_on_card_launches_as_run(cuda):
+    """ANALYZE makes run()'s launches: 2 K1 per k-hop term, 1 K1 and 1
+    scan per topological term; results bitwise run()'s; no new plan
+    signature."""
+    from repro_torch.core import api
+    from repro_torch.graphs import generators as gen
+    from repro_torch.kernels.inherit_scan.inherit_scan import inherit_scan
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
+
+    g = gen.with_random_attrs(gen.barabasi_albert(400, 2, seed=7), seed=2)
+    khop = api.Session(g, [api.QuerySpec(api.KHopWindow(2), a) for a in KHOP_AGGS],
+                       torch_device=cuda)
+    dag = gen.with_random_attrs(gen.random_dag(5000, 10.0, seed=1, locality=200), seed=2)
+    topo = api.Session(dag, [api.QuerySpec(api.TopologicalWindow(), a)
+                             for a in ("sum", "count", "min", "max")], torch_device=cuda)
+    for sess, k1_per, scans_per, phases in (
+            (khop, 2, 0, {"host_prep", "pass1_reduce", "pass2_reduce", "finalize"}),
+            (topo, 1, 1, {"host_prep", "wd_reduce", "inherit", "finalize"})):
+        want = sess.run()
+        c0 = api.recompile_count()
+        k1, scans = segment_sum_tiled.launches, inherit_scan.launches
+        rep = sess.analyze()
+        assert segment_sum_tiled.launches - k1 == k1_per
+        assert inherit_scan.launches - scans == scans_per
+        assert api.recompile_count() == c0
+        assert {p["phase"] for p in rep.phases} == phases
+        for (gi, ai), w in zip(sess.compiled.spec_slots, want):
+            got = rep.results[gi][sess.compiled.groups[gi].aggs[ai]]
+            assert got.dtype == w.dtype and got.tobytes() == w.tobytes()
