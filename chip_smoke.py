@@ -5,7 +5,9 @@
                              # served by the window service with a WAL;
                              # the topological window on a 60k DAG;
                              # qwen3-0.6b serving; the Criteo-shaped FM;
-                             # a two-follower cluster on ER n=30k
+                             # a two-follower cluster on ER n=30k;
+                             # the sharded runtime on ER n=30k at
+                             # world sizes 1 (NCCL) and 2 (gloo)
 
 Phases, one JSON object per line:
 
@@ -149,6 +151,30 @@ Phases, one JSON object per line:
     ``repro_replica_*`` lines and ``/debug`` JSON.  Reads a second, p50 /
     p99 by class and by target, lag, digest ms, each EMC build, the
     rejoin's load, rebuild and tail, the phase's seconds.
+15c. ``sharded`` — the sharded runtime (``Session(mesh=...)``) on a graph
+    and generators of its own: ER n = 30,000, degree 10, ``KHop(2)``, five
+    aggregates (``SHARDED_N``: cut from 100,000 by the run's time), the
+    deferred-phase-2 policy, the device BFS, plan headroom 1.0.  World
+    size 1 over NCCL in this process: ``run()``; ``SHARDED_WARMUP``
+    batches of 100 inserts + 25 deletes, in which the plan may rebuild
+    (k = 2's early link growth, R2); ``run_many()`` (B = 8, rows bitwise
+    ``run()``); then the stream, ``SHARDED_BATCHES`` batches that must
+    each patch the plan in place, with patch bytes below the whole plan's
+    and no new plan signature over them.  Every result is bitwise the
+    port's single-host ``Session`` on the same stream, the host index and
+    set evaluation; 2 K1 launches per ``run()`` and ``run_many()``; one
+    more ``run()`` under ``torch.profiler`` (2 K1 kernels; the
+    collectives', fills' and copies' device time, the idle share); a NaN
+    in a member of a block it reduces kept in min/max.  Then two ranks
+    spawned over gloo, both on this one card (NCCL refuses two ranks on
+    one card): every result bitwise world 1's, 2 K1 launches a rank per
+    ``run()``, each rank's device bytes below the whole plan's, a NaN that
+    only rank 1 reduces kept, one digest.  NCCL at world size 2 where
+    there are two cards (else a line says it was skipped).  ``run_ms``,
+    ``run_many_ms``, ``update_ms`` of the stream's batches and of the
+    warm-up's apart, each pass's combine inside ``run()`` (CUDA events
+    around the run's own collectives), patch and full bytes, build s per
+    rank.
 16. ``kernel:bitset_expand`` — K2 (last, so the 2 M-vertex graph of its
     shape (c) is not in the process while the paths above are timed) at
     three shapes, words and occupancy masks bitwise against its
@@ -164,8 +190,9 @@ Phases, one JSON object per line:
     from the run's generator before phase 5, as the first K2 phase drew
     them; the K2 phase and phase 5's BFS leg draw from a generator of their
     own, so neither shifts a draw of the main path.
-17. ``kernels`` — one line per the repo's reporting contract; then the card
-    line from ``nvidia-smi``; then the ``{"ok": true, ...}`` line.
+17. ``done`` — the run's seconds; then ``kernels``, one line per the
+    repo's reporting contract; then the card line from ``nvidia-smi``;
+    then the ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero; without CUDA it
 exits non-zero before printing any result.
@@ -2197,6 +2224,406 @@ def cluster_phase(args, dev):
     return out
 
 
+# ---------------------------------------------------------------------- #
+# The sharded runtime: ER n = 30,000, degree 10, KHop(2), five aggregates,
+# batches of 100 inserts + 25 deletes, run_many at B = SHARDED_B.  The
+# plan is laid out with SHARDED_HEADROOM (the CPU tests' streaming slack).
+# Under the deferred policy the first batches after an EMC build grow
+# k = 2's links fastest (R2) and outgrow the tile groups' slack, so the
+# plan rebuilds during SHARDED_WARMUP batches (the output lists which);
+# the SHARDED_BATCHES batches after them are the stream, which must patch
+# in place (cut these first if the run nears its limit)
+SHARDED_N = 30_000
+SHARDED_HEADROOM = 1.0
+SHARDED_WARMUP = 5
+SHARDED_BATCHES = 6
+SHARDED_B = 8
+
+
+def _sharded_graph(args):
+    from repro_torch.graphs.generators import erdos_renyi, with_random_attrs
+
+    return with_random_attrs(erdos_renyi(SHARDED_N, args.degree, directed=False,
+                                         seed=args.seed + 10), seed=args.seed + 11)
+
+
+def _sharded_session(g, mesh, dev):
+    """``Session(mesh=...)`` (or single-host without a mesh) under the
+    deferred-phase-2 policy, the device BFS pinned, the plan laid out
+    with ``SHARDED_HEADROOM``."""
+    from repro_torch.core.api import QuerySpec, Session
+    from repro_torch.core.streaming import StalenessPolicy
+    from repro_torch.core.windows import KHopWindow
+
+    policy = StalenessPolicy(max_link_ratio=float("inf"),
+                             max_block_ratio=float("inf"), max_garbage_ratio=1.0)
+    t = time.perf_counter()
+    sess = Session(g, [QuerySpec(KHopWindow(2), a) for a in AGGS], mesh=mesh,
+                   plan_headroom=SHARDED_HEADROOM, use_device_bfs=True, policy=policy,
+                   torch_device=dev)
+    return sess, time.perf_counter() - t
+
+
+def _combine_ms(sess, dev, reps: int) -> dict:
+    """Milliseconds of each pass's combine inside ``reps`` sharded
+    ``run()`` calls: the run's own ``_combine`` (the NaN-count columns,
+    the SUM, MIN and MAX ``all_reduce``s, the NaN restore) on the run's
+    own partials, between CUDA events after a synchronize (on the CPU, the
+    host clock); the median per pass."""
+    import torch
+
+    from repro_torch.distributed import window_runtime as wr
+
+    inner, took = wr._combine, []
+
+    def timed(*a, **k):
+        if dev.type != "cuda":
+            t = time.perf_counter()
+            out = inner(*a, **k)
+            took.append((time.perf_counter() - t) * 1e3)
+            return out
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*a, **k)
+        end.record()
+        end.synchronize()
+        took.append(start.elapsed_time(end))
+        return out
+
+    wr._combine = timed
+    try:
+        for _ in range(reps):
+            sess.run()
+    finally:
+        wr._combine = inner
+    check(len(took) == 2 * reps, f"{len(took)} combines in {reps} sharded runs")
+    return {"pass1": statistics.median(took[0::2]), "pass2": statistics.median(took[1::2]),
+            "runs": reps}
+
+
+def sharded_stream(sess, args, dev, check_step):
+    """The sharded main path, counted: ``run()``; ``SHARDED_WARMUP``
+    updates, in which the plan may still rebuild; ``run_many()`` at B =
+    ``SHARDED_B`` (rows bitwise ``run()``); then the stream,
+    ``SHARDED_BATCHES`` updates that must each patch the plan in place
+    (no rebuild, patch bytes below the whole plan's) with no new plan
+    signature over them.  Every update is followed by a ``run()``, and
+    ``check_step(label, results, batch)`` holds every result (``batch``:
+    the update just applied).  K1's and K2's counts are reset just before
+    and read just after; K1 must launch twice a ``run()`` and a
+    ``run_many()``.  Returns the results in order and the phase's
+    numbers."""
+    import numpy as np
+
+    from repro_torch.distributed.window_runtime import sharded_signature_count
+    from repro_torch.kernels.bitset_expand.bitset_expand import bitset_expand_tiled
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
+
+    rng = np.random.default_rng(args.seed + 12)
+    vb = rng.integers(0, 100, (SHARDED_B, sess.graph.n)).astype(np.float64)
+    (state,) = sess._states.values()
+    outputs, run_ms, reports = [], [], []
+
+    def counted_run():
+        before = segment_sum_tiled.launches
+        t = time.perf_counter()
+        res = sess.run()
+        run_ms.append((time.perf_counter() - t) * 1e3)
+        check(segment_sum_tiled.launches - before == 2,
+              f"a sharded run() made {segment_sum_tiled.launches - before} K1 launches, not 2")
+        return res
+
+    def update(label, warmup):
+        batch = make_batch(sess.graph, args, rng)
+        t = time.perf_counter()
+        (rep,) = sess.update(batch).values()
+        ms = (time.perf_counter() - t) * 1e3
+        res = counted_run()
+        check_step(label, res, batch)
+        outputs.append(res)
+        reports.append({"warmup": warmup, "update_ms": ms, **{key: rep[key] for key in (
+            "affected", "affected_per_shard", "patch_bytes", "patch_bytes_per_shard",
+            "full_plan_bytes", "plan_bytes", "plan_rebuilt", "compacted")}})
+        return rep
+
+    segment_sum_tiled.launches = 0
+    bitset_expand_tiled.launches = 0
+    res = counted_run()
+    check_step("run v0", res, None)
+    outputs.append(res)
+    for i in range(SHARDED_WARMUP):
+        update(f"warm-up v{i + 1}", True)
+    before = segment_sum_tiled.launches
+    many = sess.run_many(vb)
+    check(segment_sum_tiled.launches - before == 2,
+          f"a sharded run_many() made {segment_sum_tiled.launches - before} K1 launches")
+    for b in range(SHARDED_B):
+        for a, m, r in zip(AGGS, many, sess.run(vb[b])):
+            check(np.array_equal(m[b], r), f"sharded run_many row {b} differs from run: {a}")
+    check_step("run_many", many, None)
+    outputs.append(many)
+    run_many_ms = []
+    for _ in range(3):
+        t = time.perf_counter()
+        sess.run_many(vb)
+        run_many_ms.append((time.perf_counter() - t) * 1e3)
+    sigs = sharded_signature_count()
+    for i in range(SHARDED_BATCHES):
+        rep = update(f"run v{SHARDED_WARMUP + i + 1}", False)
+        check(not rep["plan_rebuilt"], f"stream batch {i + 1} rebuilt the plan")
+        check(0 < rep["patch_bytes"] < rep["full_plan_bytes"],
+              f"stream batch {i + 1}: patch {rep['patch_bytes']} B, full plan "
+              f"{rep['full_plan_bytes']} B")
+    new_sigs = sharded_signature_count() - sigs
+    check(new_sigs == 0, f"{new_sigs} new plan signatures over the stream")
+    warm = [r for r in reports if r["warmup"]]
+    return outputs, {
+        "run_ms": statistics.median(run_ms), "run_ms_all": run_ms,
+        "run_many_ms": statistics.median(run_many_ms), "run_many_batch": SHARDED_B,
+        "plan_headroom": SHARDED_HEADROOM,
+        "update_ms": statistics.median(r["update_ms"] for r in reports if not r["warmup"]),
+        "warmup_update_ms": [r["update_ms"] for r in warm],
+        "warmup_rebuilt": [r["plan_rebuilt"] for r in warm],
+        "batches": reports, "new_plan_signatures": new_sigs,
+        "plan_bytes_on_rank": state.plan.plan_nbytes(),
+        "plan_bytes_whole": state.plan.size_bytes(),
+        "rows_per_shard": [state.plan.rows1, state.plan.rows2],
+        "launches": {"segment_sum": segment_sum_tiled.launches,
+                     "bitset_expand": bitset_expand_tiled.launches},
+    }
+
+
+def _nan_case(sess, shard: int, dev) -> dict:
+    """A NaN in a member of a block that ``shard`` reduces in pass 1: the
+    sharded min/max keep it as the port's single-host executor does on
+    the same index (a plan of it laid out whole, on ``dev``), also in
+    windows only ``shard`` reduced in pass 2."""
+    import numpy as np
+
+    from repro_torch.core import engine_torch as et
+
+    (state,) = sess._states.values()
+    plan, index = state.plan, state.index
+    on = np.flatnonzero(plan.reducing_shard(index.member_block_ids, 1) == shard)
+    check(on.size > 0, f"shard {shard} reduces no block")
+    v = int(index.block_members[on[0]])
+    vals = np.array(sess.graph.attrs["val"], np.float64)
+    vals[v] = np.nan
+    got = sess.run(vals)
+    whole = et.plan_from_dbindex(index, plan.tm, plan.ts, torch_device=dev)
+    want = [o.cpu().numpy() for o in et.query_dbindex_multi(whole, vals, AGGS)]
+    for a, x, y in zip(AGGS, got, want):
+        check(np.array_equal(x, y, equal_nan=True), f"NaN case: {a} differs from single-host")
+    kept = {}
+    for a in ("min", "max"):
+        lost = np.flatnonzero(np.isnan(got[AGGS.index(a)]))
+        on_shard = int((plan.reducing_shard(lost, 2) == shard).sum())
+        check(lost.size > 0 and on_shard > 0, f"NaN case: no {a} window of shard {shard} holds it")
+        kept[a] = {"nan_windows": int(lost.size), "reduced_on_shard": on_shard}
+    return {"vertex": v, "shard": shard, **kept}
+
+
+def sharded_rank(rank: int, args, world: int, backend: str, dev_type: str, store: str,
+                 expect: str, out: str) -> None:
+    """One spawned rank of the sharded phase: the world-1 stream again on
+    this rank's mesh, every result bitwise the world-1 results in
+    ``expect``, then the NaN case on shard 1; its numbers go to
+    ``out``.``rank``.json."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dev = torch.device("cpu")
+    if dev_type == "cuda":
+        dev = torch.device("cuda", rank if backend == "nccl" else 0)
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=300))
+    mesh = init_device_mesh("cuda" if backend == "nccl" else "cpu", (world,),
+                            mesh_dim_names=("data",))
+    g = _sharded_graph(args)
+    sess, build_s = _sharded_session(g, mesh, dev)
+    want = np.load(expect)
+    seen = iter(range(len(want.files)))
+
+    def check_step(label, res, batch):
+        for a, r in zip(AGGS, res):
+            w = want[f"o{next(seen)}"]
+            check(r.dtype == w.dtype and r.tobytes() == w.tobytes(),
+                  f"rank {rank}, {label}: {a} differs from world 1")
+
+    _, stream = sharded_stream(sess, args, dev, check_step)
+    (state,) = sess._states.values()
+    check(stream["plan_bytes_on_rank"] < stream["plan_bytes_whole"],
+          f"rank {rank} holds {stream['plan_bytes_on_rank']} B of a "
+          f"{stream['plan_bytes_whole']} B plan")
+    report = {"rank": rank, "backend": backend, "device": str(dev), "build_s": build_s,
+              "emc_build_s": state.index.stats.get("t_total_s"), **stream,
+              "combine_ms": _combine_ms(sess, dev, args.reps),
+              "nan_case": _nan_case(sess, 1, dev),
+              "digest": sess.digest()["plan_crc"]}
+    with open(f"{out}.{rank}.json", "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(args, backend: str, dev, expect: str, tmp: str, timeout_s: float) -> list:
+    """Two ranks (``sharded_rank``) on ``backend``, spawned processes;
+    their JSON reports.  Every rank is stopped before this returns."""
+    import torch.multiprocessing as mp
+
+    # ranks of one host: rendezvous and traffic on the loopback interface
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    out = os.path.join(tmp, f"rank_{backend}")
+    ctx = mp.start_processes(
+        sharded_rank, args=(args, 2, backend, dev.type, os.path.join(tmp, f"store_{backend}"),
+                            expect, out),
+        nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            check(time.monotonic() < deadline,
+                  f"the {backend} ranks still ran after {timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    reports = []
+    for r in range(2):
+        with open(f"{out}.{r}.json") as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def sharded_phase(args, dev):
+    """The sharded runtime on the card, on a graph and generators of its
+    own: a ``ShardedSession`` at world size 1 over NCCL in this process,
+    bitwise the port's single-host ``Session`` on the same stream, the
+    host index and set evaluation after every batch, the stream after the
+    warm-up patch-only; then two spawned ranks over gloo on this one
+    card, every result bitwise world 1's and a NaN held only by rank 1
+    kept; NCCL at world size 2 where there are two cards.  Each rank's
+    K1 launches per ``run()`` are counted; K1's and K2's counts of every
+    rank add to the kernels line."""
+    import datetime
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.kernels.bitset_expand.bitset_expand import bitset_expand_tiled
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
+
+    t_phase = time.perf_counter()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="sharded_", dir=os.path.join(ROOT, "build"))
+    out = {"n": SHARDED_N, "window": "KHop(2)", "aggs": list(AGGS),
+           "warmup_batches": SHARDED_WARMUP, "batches": SHARDED_BATCHES,
+           "edits_per_batch": args.inserts + args.deletes}
+    try:
+        t = time.perf_counter()
+        g = _sharded_graph(args)
+        out["graph_s"] = time.perf_counter() - t
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if dev.type == "cuda":  # the mesh's communicator on this card
+            torch.cuda.set_device(torch.cuda.current_device())
+        dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store1"), 1),
+                                rank=0, world_size=1, timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("data",))
+            sess, build_s = _sharded_session(g, mesh, dev)
+            host, host_build_s = _sharded_session(g, None, dev)
+            check(sess.compiled.groups[0].engine == "torch-sharded",
+                  f"the mesh session chose {sess.compiled.groups[0].engine}")
+            (state,) = sess._states.values()
+            (hstate,) = host._states.values()
+            verts = np.sort(np.random.default_rng(args.seed + 13).choice(
+                g.n, args.oracle_vertices, replace=False))
+
+            def check_step(label, res, batch):
+                # the single-host session is the comparison: its launches
+                # are not the path's
+                k1, k2 = segment_sum_tiled.launches, bitset_expand_tiled.launches
+                if label == "run_many":
+                    want = host.run_many(np.random.default_rng(args.seed + 12).integers(
+                        0, 100, (SHARDED_B, g.n)).astype(np.float64))
+                else:
+                    if batch is not None:
+                        host.update(batch)
+                    want = host.run()
+                segment_sum_tiled.launches, bitset_expand_tiled.launches = k1, k2
+                for a, x, y in zip(AGGS, res, want):
+                    check(x.dtype == y.dtype and x.tobytes() == y.tobytes(),
+                          f"world 1 {label}: {a} differs from single-host")
+                if label == "run_many":
+                    return
+                vals = sess.graph.attrs["val"]
+                check_results(res, host_expect(state.index, vals), f"world 1 {label} vs host index")
+                check_results([r[verts] for r in res], set_eval_expect(sess.graph, vals, verts),
+                              f"world 1 {label} vs set evaluation")
+
+            outputs, w1 = sharded_stream(sess, args, dev, check_step)
+            if dev.type == "cuda":
+                # one more run() under torch.profiler: K1 twice, the
+                # collectives, the fills, the copies back
+                prof_res = []
+                w1["profile_run"] = device_profile(
+                    lambda: prof_res.append(sess.run()), dev, w1["run_ms"],
+                    match=("segment_reduce_kernel", "nccl", "Fill", "CatArray", "index_copy",
+                           "Memcpy"))
+                check_step("profiled run", prof_res[0], None)
+                k1_traced = w1["profile_run"]["matched"]["segment_reduce_kernel"]["launches"]
+                check(k1_traced == 2, f"the profiled sharded run() ran K1 {k1_traced} times")
+            w1.update(build_s=build_s, host_session_build_s=host_build_s,
+                      emc_build_s=state.index.stats.get("t_total_s"),
+                      combine_ms=_combine_ms(sess, dev, args.reps),
+                      nan_case=_nan_case(sess, 0, dev),
+                      digest=sess.digest()["plan_crc"],
+                      host_plan_bytes=hstate.plan.plan_nbytes())
+            out[f"world1_{backend}"] = w1
+            expect = os.path.join(tmp, "world1.npz")
+            np.savez(expect, **{f"o{i}": o for i, o in enumerate(
+                x for res in outputs for x in res)})
+            del sess, host, state, hstate
+        finally:
+            dist.destroy_process_group()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        launches = dict(w1["launches"])
+        t = time.perf_counter()
+        ranks = _spawn_ranks(args, "gloo", dev, expect, tmp, 600)
+        out["world2_gloo_s"] = time.perf_counter() - t
+        out["world2_gloo"] = ranks
+        check(len({r["digest"] for r in ranks}) == 1, "the gloo ranks' digests differ")
+        for r in ranks:
+            for name in launches:
+                launches[name] += r["launches"][name]
+        if dev.type == "cuda" and torch.cuda.device_count() >= 2:
+            nccl = _spawn_ranks(args, "nccl", dev, expect, tmp, 600)
+            out["world2_nccl"] = nccl
+            for r in nccl:
+                for name in launches:
+                    launches[name] += r["launches"][name]
+        else:
+            out["world2_nccl"] = (f"skipped: {torch.cuda.device_count()} card(s); NCCL "
+                                  "refuses two ranks on one card")
+        out["launches"] = launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2212,6 +2639,7 @@ def run(args, dev) -> None:
     from repro_torch.graphs.generators import erdos_renyi, with_random_attrs
     from repro_torch.kernels import build
 
+    t_run = time.perf_counter()
     rng = np.random.default_rng(args.seed)
     smi = smi_line()
     emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
@@ -2315,6 +2743,10 @@ def run(args, dev) -> None:
     emit({"phase": "cluster", **cluster})
     for name, count in cluster["launches"].items():
         launches[name] += count
+    sharded = sharded_phase(args, dev)
+    emit({"phase": "sharded", **sharded})
+    for name, count in sharded["launches"].items():
+        launches[name] += count
     # last: the 2 M-vertex graph of its shape (c) would otherwise sit in
     # this process while the end-to-end paths above are timed
     k2_shapes = kernel_bitset_expand(g, args, dev, k2_rng, b_seeds)
@@ -2385,6 +2817,7 @@ def run(args, dev) -> None:
             for form in ("run_many", "path", "star")},
          "check": "ok"},
     ]
+    emit({"phase": "done", "seconds": time.perf_counter() - t_run})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

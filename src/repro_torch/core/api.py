@@ -42,6 +42,10 @@ The paper's GWQ abstraction (Definition 3) is one algebraic object —
   plans are patched in place, so :meth:`Session.update` first clones a
   plan that a live view holds (copy-on-write) and patches the clone: a
   view answers at its own version for as long as it lives.
+* ``Session(g, specs, mesh=mesh)`` builds a
+  :class:`~repro_torch.distributed.window_runtime.ShardedSession` over a
+  ``torch.distributed`` device mesh, SPMD: the ``torch-sharded`` engine
+  (priority 70), a plan shard on each rank's device.
 """
 
 from __future__ import annotations
@@ -245,6 +249,7 @@ KNOWN_OPTS = frozenset({
     "seed",  # build_dbindex
     "iterations", "chunk_size",  # build_eagr
     "tm", "ts", "headroom", "schedule", "torch_device",  # device
+    "mesh", "axis",  # sharded
 })
 
 
@@ -333,6 +338,33 @@ def _run_torch_iindex(g, window, values, aggs, index=None, plan=None, **opts):
     return {a: o.cpu().numpy() for a, o in zip(aggs, outs)}
 
 
+def _run_torch_sharded(g, window, values, aggs, index=None, plan=None, **opts):
+    """Fused multi-aggregate query across a mesh, SPMD (every rank calls
+    it).  ``plan`` may be a
+    :class:`~repro_torch.distributed.window_runtime.ShardedDBPlan` (the
+    streaming Session path: the shards are already on the ranks' devices)
+    or a host :class:`~repro_torch.core.engine_torch.DBIndexPlan` (one-shot:
+    sharded per call)."""
+    from repro_torch.distributed import window_runtime as wr
+
+    if isinstance(plan, wr.ShardedDBPlan):
+        outs = wr.query_sharded_multi(plan, values, tuple(aggs))
+        return {a: o.cpu().numpy() for a, o in zip(aggs, outs)}
+    mesh = opts.get("mesh")
+    if mesh is None:
+        raise UnsupportedQueryError("engine 'torch-sharded' needs a mesh= opt")
+    if plan is None:
+        index = index if index is not None else _build_dbindex(g, window, opts)
+        # the whole single-host plan stays on the CPU; each rank uploads
+        # its own shard, to the card unless the caller names the CPU
+        plan = et.plan_from_dbindex(index, **_pick(opts, "tm", "ts"),
+                                    torch_device="cpu")
+    outs = et.query_dbindex_sharded_multi(plan, values, tuple(aggs), mesh,
+                                          axis=opts.get("axis", "data"),
+                                          torch_device=opts.get("torch_device", "cuda"))
+    return {a: o.cpu().numpy() for a, o in zip(aggs, outs)}
+
+
 #: the fused [B, n] executor of each device engine (Session.run_many)
 _FUSED_MANY = {"torch": et.query_dbindex_multi,
                "torch-iindex": et.query_iindex_multi}
@@ -362,6 +394,11 @@ def _default_registry() -> EngineRegistry:
     r.register(EngineCapability("torch-iindex", ("topological",), ALL_AGGREGATES,
                                 device=True, incremental=True, priority=60),
                _run_torch_iindex)
+    # the stacked-channel sharded executor serves every monoid aggregate
+    # (sum channels ride one all_reduce(SUM) a pass, min/max MIN/MAX)
+    r.register(EngineCapability("torch-sharded", any_w, ALL_AGGREGATES,
+                                device=True, sharded=True, incremental=True,
+                                priority=70), _run_torch_sharded)
     return r
 
 
@@ -536,7 +573,7 @@ def compile_queries(
 # ---------------------------------------------------------------------- #
 #  Session: graph + indices + compiled plans under streamed updates
 # ---------------------------------------------------------------------- #
-_DBINDEX_ENGINES = {"dbindex", "torch"}
+_DBINDEX_ENGINES = {"dbindex", "torch", "torch-sharded"}
 _IINDEX_ENGINES = {"iindex", "torch-iindex"}
 
 
@@ -570,7 +607,24 @@ class Session:
     count them), so a pinned view keeps its version's plan; with no live
     view the patch stays in place.  :meth:`snapshot` and :meth:`update`
     serialize on one lock, so no view is taken of a half-patched state.
+
+    Passing ``mesh=`` (a ``torch.distributed`` ``DeviceMesh``; ``axis``
+    names its data dimension or dimensions) constructs a
+    :class:`~repro_torch.distributed.window_runtime.ShardedSession`
+    instead: query planning selects sharded capabilities, plans live as
+    per-rank device shards, and streamed updates write only changed tile
+    groups into the shard owning them.
     """
+
+    #: subclasses flip this to make compile_queries select sharded engines
+    _sharded = False
+
+    def __new__(cls, g=None, specs=None, **kw):
+        if cls is Session and kw.get("mesh") is not None:
+            from repro_torch.distributed.window_runtime import ShardedSession
+
+            return super().__new__(ShardedSession)
+        return super().__new__(cls)
 
     def __init__(
         self,
@@ -585,6 +639,8 @@ class Session:
         ts: int = 512,
         plan_headroom: float = 0.5,
         compact_garbage: Optional[float] = None,
+        mesh=None,
+        axis="data",
         use_device_bfs: Optional[bool] = None,
         obs=None,
         tracer=None,
@@ -602,15 +658,15 @@ class Session:
             "repro_plan_clones_total",
             "device plans cloned before a patch because a live view held them")
         self.compiled = compile_queries(specs, registry=self.registry,
-                                        device=device)
+                                        device=device, sharded=self._sharded)
         self.graph = g
+        self.mesh = mesh
         self._opts = dict(tm=tm, ts=ts, method=method,
-                          torch_device=self.torch_device)
+                          torch_device=self.torch_device, mesh=mesh, axis=axis)
         self._state_cfg = dict(
             method=method, policy=policy, tm=tm, ts=ts,
-            plan_headroom=plan_headroom,
-            compact_garbage=0.5 if compact_garbage is None else compact_garbage,
-            use_device_bfs=use_device_bfs,
+            plan_headroom=plan_headroom, compact_garbage=compact_garbage,
+            axis=axis, use_device_bfs=use_device_bfs,
         )
         self.updates_applied = 0
         #: monotonically increasing state version: bumped once per
@@ -636,13 +692,14 @@ class Session:
         )
         # one stateful engine per (materialized window, index kind) — shared
         # by every group (and every program term) on that key, so the
-        # device flag is the OR over the sharing groups (a host group must
-        # not strip the plan a device group compiled).  EAGR indices are
-        # rebuilt lazily after updates (no incremental story).
+        # device/sharded flags are the OR over the sharing groups (a host
+        # group must not strip the plan a device group compiled).  EAGR
+        # indices are rebuilt lazily after updates (no incremental story).
         self._states: Dict[Tuple[object, str], object] = {}
         self._eagr: Dict[object, object] = {}
         self._eagr_dirty = False
         need_device: Dict[Tuple[object, str], bool] = {}
+        need_shard: Dict[Tuple[object, str], bool] = {}
         for gi, grp in enumerate(self.compiled.groups):
             kind = _kind_of(grp.engine)
             if kind is None:
@@ -651,18 +708,29 @@ class Session:
             for term in self._group_terms(gi):
                 key = (term, kind)
                 need_device[key] = need_device.get(key, False) or cap.device
+                need_shard[key] = need_shard.get(key, False) or cap.sharded
         for (window, kind), dev in need_device.items():
-            self._states[(window, kind)] = self._make_state(window, kind, dev)
+            self._states[(window, kind)] = self._make_state(
+                window, kind, dev, need_shard[(window, kind)])
 
-    def _make_state(self, window, kind: str, device: bool):
+    def _make_state(self, window, kind: str, device: bool, sharded: bool = False):
+        """The per-(window, kind) streaming state.  The base Session always
+        builds single-device engines; :class:`ShardedSession` overrides
+        this to place sharded windows on the mesh.
+
+        ``compact_garbage=None`` defers to the engine's own default: the
+        single-host compaction re-lays pass 1 (a shape change), so it waits
+        as long as a rebuild (0.5); the sharded one is in place and
+        shape-stable, so it fires earlier (0.25)."""
         from repro_torch.core.streaming import StreamingEngine
 
         cfg = self._state_cfg
+        cg = cfg["compact_garbage"]
         return StreamingEngine(
             self.graph, window, index_kind=kind, method=cfg["method"],
             policy=cfg["policy"], device=device, tm=cfg["tm"], ts=cfg["ts"],
             plan_headroom=cfg["plan_headroom"],
-            compact_garbage=cfg["compact_garbage"],
+            compact_garbage=0.5 if cg is None else cg,
             use_device_bfs=cfg["use_device_bfs"],
             obs=self.obs, tracer=self.tracer, torch_device=self.torch_device,
         )

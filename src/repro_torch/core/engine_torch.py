@@ -474,6 +474,40 @@ def query_dbindex(plan: DBIndexPlan, values, agg: str = "sum"):
     return query_dbindex_multi(plan, values, (agg,))[0]
 
 
+def query_dbindex_sharded_multi(plan: DBIndexPlan, values, aggs: tuple,
+                                mesh, axis="data", torch_device=None):
+    """Fused multi-aggregate distributed query (stacked-channel matrix
+    form), SPMD: every rank of ``mesh`` calls it with the same plan and
+    values and gets every aggregate.
+
+    Tile rows are sharded over ``axis`` at whole-tile-group granularity
+    (:mod:`repro_torch.distributed.window_runtime`), so every segment's
+    partial is produced by exactly one shard: each pass is one K1 launch
+    per shard, then one ``all_reduce`` per monoid, and every aggregate is
+    **bit-identical** to :func:`query_dbindex_multi`'s (non-owning shards
+    only ever contribute exact monoid identities).
+
+    One-shot convenience — lays the plan out and uploads this rank's shard
+    (to ``torch_device``, default the plan's device) per call.  Streaming
+    callers hold a :class:`~repro_torch.distributed.window_runtime.ShardedDBPlan`
+    (via ``Session(mesh=...)``), so the layout uploads once."""
+    from repro_torch.distributed.window_runtime import (
+        build_sharded_plan,
+        query_sharded_multi,
+    )
+
+    splan = build_sharded_plan(plan, mesh, axis, torch_device=torch_device)
+    return query_sharded_multi(splan, values, tuple(aggs))
+
+
+def query_dbindex_sharded(plan: DBIndexPlan, values, mesh, axis="data",
+                          torch_device=None):
+    """Single-aggregate (SUM) wrapper over the stacked-channel sharded
+    query."""
+    return query_dbindex_sharded_multi(plan, values, ("sum",), mesh, axis,
+                                       torch_device)[0][: plan.n]
+
+
 # ---------------------------------------------------------------------- #
 #  I-Index plan
 # ---------------------------------------------------------------------- #

@@ -226,6 +226,9 @@ class StreamingEngine:
     to the card and raises when CUDA is absent unless it names the CPU.
     """
 
+    #: extra attributes of the ``index.update`` trace span
+    _span_tags: Dict = {}
+
     def __init__(
         self,
         g: Graph,
@@ -293,19 +296,49 @@ class StreamingEngine:
         else:
             self.index = build_iindex(self.graph)
             self._base_links = self._base_blocks = 0
-        self.plan = None
-        if self.device:
-            self.plan = (
-                et.plan_from_dbindex(self.index, self.tm, self.ts,
-                                     headroom=self.plan_headroom,
-                                     torch_device=self.torch_device)
-                if self.index_kind == "dbindex"
-                else et.plan_from_iindex(self.index, self.tm, self.ts,
-                                         torch_device=self.torch_device))
+        self.plan = self._new_plan() if self.device else None
         self.batches_since_reorg = 0
         if not initial:
             self.reorg_count += 1
             self.plan_version += 1
+
+    # ------------------------------------------------------------------ #
+    #  The plan steps a sharded state lays out differently
+    #  (repro_torch.distributed.window_runtime.ShardedStreamState)
+    # ------------------------------------------------------------------ #
+    def _new_plan(self):
+        """A fresh device plan of ``self.index`` (``self.plan`` is still
+        the previous one, or None at the first build)."""
+        if self.index_kind == "dbindex":
+            return et.plan_from_dbindex(self.index, self.tm, self.ts,
+                                        headroom=self.plan_headroom,
+                                        torch_device=self.torch_device)
+        return et.plan_from_iindex(self.index, self.tm, self.ts,
+                                   torch_device=self.torch_device)
+
+    def _patch_plan(self, index, owners: np.ndarray):
+        """``self.plan`` with ``owners``' windows of ``index`` written in."""
+        if self.index_kind == "dbindex":
+            return et.patch_plan_dbindex(self.plan, index, owners,
+                                         compact_garbage=self.compact_garbage,
+                                         headroom=self.plan_headroom)
+        return et.patch_plan_iindex(self.plan, index, owners)
+
+    def _update_index(self, g2: Graph, batch: UpdateBatch):
+        """The index after ``batch`` (``g2`` the updated graph), the owners
+        whose windows changed, and the report's extra keys."""
+        if self.index_kind == "dbindex":
+            idx2, changed = update_dbindex_batch(
+                self.index, g2, self.window, batch,
+                use_device=self.use_device_bfs, torch_device=self.torch_device)
+        else:
+            idx2, changed = update_iindex_batch(self.index, g2, batch)
+        return idx2, changed, {}
+
+    def _finish_report(self, rep: Dict, extra: Optional[Dict]) -> Dict:
+        """``apply``'s report, given the extra keys of ``_update_index``
+        (None for an attribute-only batch)."""
+        return rep
 
     # ------------------------------------------------------------------ #
     def _refilter(self, owners: np.ndarray) -> bool:
@@ -329,11 +362,7 @@ class StreamingEngine:
             self._build()
             return True
         if self.device:
-            self.plan = et.patch_plan_dbindex(
-                self.plan, self.index, owners,
-                compact_garbage=self.compact_garbage,
-                headroom=self.plan_headroom,
-            )
+            self.plan = self._patch_plan(self.index, owners)
         self.plan_version += 1
         return False
 
@@ -350,16 +379,11 @@ class StreamingEngine:
         g2 = apply_batch(self.graph, batch) if graph is None else graph
         fast = _attr_only_report(self, batch, g2, t0)
         if fast is not None:
-            return fast
+            return self._finish_report(fast, None)
         with self.tracer.span("index.update", cat="update",
-                              kind=self.index_kind, size=batch.size):
-            if self.index_kind == "dbindex":
-                idx2, changed = update_dbindex_batch(
-                    self.index, g2, self.window, batch,
-                    use_device=self.use_device_bfs,
-                    torch_device=self.torch_device)
-            else:
-                idx2, changed = update_iindex_batch(self.index, g2, batch)
+                              kind=self.index_kind, size=batch.size,
+                              **self._span_tags):
+            idx2, changed, extra = self._update_index(g2, batch)
         self.graph, self.index = g2, idx2
         t_index = time.perf_counter() - t0
         self._m_t_index.labels(self.index_kind).observe(t_index)
@@ -385,14 +409,7 @@ class StreamingEngine:
         elif self.device:
             with self.tracer.span("plan.patch", cat="update",
                                   kind=self.index_kind, action="patch"):
-                if self.index_kind == "dbindex":
-                    self.plan = et.patch_plan_dbindex(
-                        self.plan, idx2, changed,
-                        compact_garbage=self.compact_garbage,
-                        headroom=self.plan_headroom,
-                    )
-                else:
-                    self.plan = et.patch_plan_iindex(self.plan, idx2, changed)
+                self.plan = self._patch_plan(idx2, changed)
             self.plan_version += 1
         else:
             self.plan_version += 1  # host "plan" is the index itself
@@ -400,7 +417,7 @@ class StreamingEngine:
         self._m_t_plan.labels(self.index_kind).observe(t_plan)
         self._m_maint.labels(
             self.index_kind, "reorganize" if reorganized else "patch").inc()
-        return {
+        return self._finish_report({
             "batch_size": batch.size,
             "affected": int(np.asarray(changed).size),
             # the exact owner set whose windows were recomputed — the
@@ -416,7 +433,7 @@ class StreamingEngine:
             "plan_bytes": (int(self.plan.plan_nbytes())
                            if self.plan is not None
                            and hasattr(self.plan, "plan_nbytes") else 0),
-        }
+        }, extra)
 
     # ------------------------------------------------------------------ #
     def query(self, agg: str = "sum", values=None) -> np.ndarray:

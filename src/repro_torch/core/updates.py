@@ -361,6 +361,82 @@ def affected_owners(
     raise TypeError(window)
 
 
+def _shard_slices(g_new: Graph, window, batch: UpdateBatch, num_shards: int) -> list:
+    """The per-shard work of :func:`sharded_affected_owners`: the batch's
+    seed endpoints (k-hop), edge heads (topological) or edits (composite)
+    cut into ``num_shards`` slices over the data axis."""
+    parts = max(num_shards, 1)
+    if isinstance(window, KHopWindow):
+        return np.array_split(np.unique(_khop_seeds(g_new, batch)), parts)
+    if isinstance(window, TopologicalWindow):
+        return np.array_split(np.unique(batch.dst.astype(np.int64)), parts)
+    if isinstance(window, WindowExpr):
+        # composite windows: affected sets distribute over *batch* unions
+        # (each leaf's set does), so slice the batch's edits
+        return [UpdateBatch(batch.src[s], batch.dst[s], batch.op[s])
+                for s in np.array_split(np.arange(batch.size), parts)]
+    raise TypeError(window)
+
+
+def _slice_owners(g_new: Graph, window, piece, use_device: Optional[bool],
+                  torch_device) -> Array:
+    """Affected owners of one :func:`_shard_slices` slice."""
+    if (piece.size if isinstance(piece, UpdateBatch) else len(piece)) == 0:
+        return np.empty(0, np.int32)
+    if isinstance(window, KHopWindow):
+        return affected_owners_khop_multi(g_new, window.k, piece, use_device=use_device,
+                                          torch_device=torch_device)
+    if isinstance(window, TopologicalWindow):
+        return descendants_multi(g_new, piece)
+    return affected_owners(g_new, window, piece, use_device=use_device,
+                           torch_device=torch_device)
+
+
+def sharded_affected_owners(
+    g_new: Graph, window, batch: UpdateBatch, num_shards: int,
+    use_device: Optional[bool] = None, torch_device="cuda",
+) -> Tuple[Array, List[Array]]:
+    """Distributed affected-set computation for one batch: the seed
+    endpoints are sliced over ``num_shards`` (the data axis), each shard
+    traverses only its slice's reverse balls / descendant cones, and the
+    union is exactly the single-host affected set (BFS distributes over
+    seed unions).  Returns ``(owners_union, per_shard_owners)`` — the
+    per-shard sets are what each shard's dirty tile groups derive from.
+    This form computes every slice in one process; :func:`spmd_affected_owners`
+    is the form in which each rank traverses its own slice."""
+    per_shard = [_slice_owners(g_new, window, piece, use_device, torch_device)
+                 for piece in _shard_slices(g_new, window, batch, num_shards)]
+    owners = (np.unique(np.concatenate(per_shard)).astype(np.int32)
+              if per_shard else np.empty(0, np.int32))
+    return owners, per_shard
+
+
+def spmd_affected_owners(
+    g_new: Graph, window, batch: UpdateBatch, num_shards: int, shard: int,
+    group=None, use_device: Optional[bool] = None, torch_device="cuda",
+) -> Tuple[Array, List[int]]:
+    """:func:`sharded_affected_owners` run SPMD: this rank (``shard`` of
+    ``num_shards`` in ``group``) traverses only its own slice (K2 on its
+    own device when the slice takes the device route), then one
+    ``all_reduce(SUM)`` of an int32 ``[n + num_shards]`` tensor on
+    ``torch_device`` — the slice's owner mask and its size at position
+    ``shard`` — gives every rank the union and every slice's size.
+    Returns ``(owners_union, per_shard_sizes)``."""
+    import torch
+    import torch.distributed as dist
+
+    piece = _shard_slices(g_new, window, batch, num_shards)[shard]
+    mine = _slice_owners(g_new, window, piece, use_device, torch_device)
+    buf = np.zeros(g_new.n + num_shards, np.int32)
+    buf[mine] = 1
+    buf[g_new.n + shard] = mine.size
+    t = torch.from_numpy(buf).to(torch_device)
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    got = t.cpu().numpy()
+    owners = np.flatnonzero(got[: g_new.n]).astype(np.int32)
+    return owners, [int(x) for x in got[g_new.n:]]
+
+
 def affected_owners_khop(g_new: Graph, k: int, s: int, t: int) -> Array:
     """Single-edge wrapper (kept for compatibility)."""
     seeds = [s] if g_new.directed else [s, t]

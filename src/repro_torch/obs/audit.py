@@ -23,8 +23,9 @@ in the running system through three independent evidence channels:
   (:meth:`repro_torch.serve.wal.WriteAheadLog.append_digest`), so a
   follower self-checks after every poll and attributes divergence to the
   **first bad version + WAL byte offset**.  The graph and DBIndex plan
-  digests equal the reference package's wherever the arrays are equal;
-  the I-Index plan's covers the port's own arrays (the chain layout too).
+  digests equal the reference package's wherever the arrays are equal,
+  and so does a sharded plan's (its whole canonical layout); the I-Index
+  plan's covers the port's own arrays (the chain layout too).
 
 * :class:`WalScrubber` — background sweep of the *sealed* log region
   (records wholly below the WAL's fsync high-water mark) re-verifying
@@ -88,7 +89,12 @@ def _crc_array(crc: int, a) -> int:
 def named_plan_arrays(plan) -> Dict[str, object]:
     """The named tensors a plan holds: its ``named_arrays()``, the one
     accessor its ``array_nbytes()`` also reads, so the digest covers every
-    array the footprint counts under the same keys."""
+    array the footprint counts under the same keys.  A
+    :class:`~repro_torch.distributed.window_runtime.ShardedDBPlan` names
+    the whole canonical layout instead (the flat arrays of every shard,
+    under the reference's keys, held on the host by every rank), so its
+    digest is the same on every rank and equals the reference's for the
+    same plan and shard count; its device shard is derived from them."""
     return plan.named_arrays()
 
 

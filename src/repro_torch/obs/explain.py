@@ -9,8 +9,9 @@ cannot:
   every other registered capability lost (window kind not served,
   aggregates not covered, sharded-flag mismatch, or simply lower
   priority): ``torch`` (the DBIndex device plan, K1 and K2) at priority
-  50, ``torch-iindex`` (K1, then the inheritance scan) at 60, and the host
-  engines below them;
+  50, ``torch-iindex`` (K1, then the inheritance scan) at 60,
+  ``torch-sharded`` (the sharded DBIndex plan of a mesh session) at 70,
+  and the host engines below them;
 * **lowering choice** — per (expression, monoid set): direct leaf
   materialization, generic composite materialization (with the exact
   planner reason the algebraic fast path was rejected), idempotent
@@ -19,7 +20,8 @@ cannot:
 * **plan anatomy** — per materialized term: blocks, tile groups, ELL
   layouts, headroom utilization (real vs padded rows), garbage fraction;
   for the I-Index plan also the depth and chain count of the PID forest
-  the scan walks;
+  the scan walks; for a sharded plan the shard count, rows per shard,
+  shard balance and the patch ledger;
 * **memory footprint** — exact per-array device bytes via the plan
   classes' ``array_nbytes()`` / ``plan_nbytes()`` (``numel() *
   element_size()`` of every tensor the plan names in ``named_arrays()``).
@@ -27,8 +29,8 @@ cannot:
 Everything here is read-only introspection of host metadata and tensor
 shapes: no kernel is launched and no query signature is recorded, so
 EXPLAIN can never perturb the zero-respecialization or bit-identity
-invariants it reports on.  Sharded plans have no port yet, so neither has
-their anatomy.
+invariants it reports on.  A sharded plan's footprint is this rank's
+device shard; its anatomy reads the host layout every rank holds.
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ class TermReport:
     window: str
     index_kind: Optional[str]  # dbindex | iindex | eagr | None (stateless)
     index: Dict  # host index anatomy
-    plan_kind: Optional[str]  # DBIndexPlan | IIndexPlan | None
+    plan_kind: Optional[str]  # DBIndexPlan | IIndexPlan | ShardedDBPlan | None
     plan: Dict  # device plan anatomy
     array_nbytes: Dict  # name -> exact device bytes
     plan_nbytes: int  # sum of the above
@@ -367,6 +369,25 @@ def _plan_anatomy(plan, index) -> Tuple[Optional[str], Dict, Dict]:
             anat["wd_rows_real"] = real
             anat["wd_headroom_utilization"] = real / max(pad, 1)
         return cls, anat, plan.array_nbytes()
+    if cls == "ShardedDBPlan":
+        # array_nbytes: this rank's shard (what its device holds)
+        anat = {
+            "ndev": int(plan.ndev),
+            "num_blocks": int(plan.num_blocks),
+            "block_capacity": int(plan.block_capacity),
+            "capacity_utilization": plan.num_blocks / plan.block_capacity,
+            "rows1_per_shard": int(plan.rows1),
+            "rows2_per_shard": int(plan.rows2),
+            "has_ell": bool(plan.has_ell),
+            "shard_balance": plan.shard_row_loads(),
+            "patch_ledger": {
+                k: plan.stats[k]
+                for k in ("version", "patched_bytes_total", "rebuilds",
+                          "full_bytes")
+                if k in plan.stats
+            },
+        }
+        return cls, anat, plan.array_nbytes()
     # unknown plan type: still account what we can
     nb = {}
     if hasattr(plan, "array_nbytes"):
@@ -475,7 +496,7 @@ def explain_session(session, spec=None) -> PlanReport:
         n_vertices=int(g.n),
         n_edges=int(np.asarray(g.src).size),
         version=int(session.version),
-        sharded=False,  # no mesh session in the port yet
+        sharded=bool(session._sharded),
         groups=groups,
         total_plan_nbytes=total,
     )

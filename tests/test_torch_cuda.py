@@ -697,3 +697,47 @@ def test_analyze_on_card_launches_as_run(cuda):
         for (gi, ai), w in zip(sess.compiled.spec_slots, want):
             got = rep.results[gi][sess.compiled.groups[gi].aggs[ai]]
             assert got.dtype == w.dtype and got.tobytes() == w.tobytes()
+
+
+# ---------------------------------------------------------------------- #
+#  The sharded runtime on the card (its ranks: tests/test_torch_sharded.py)
+# ---------------------------------------------------------------------- #
+def test_sharded_session_nccl_world1_bitwise_single_host(cuda, tmp_path):
+    """World 1 over NCCL in this process: a 12-batch stream bitwise the
+    single-host session on the card, 2 K1 launches per ``run()`` and per
+    ``run_many()`` (one a pass), nothing scattered or index-added."""
+    import torch.distributed as dist
+
+    import test_torch_sharded as ts
+
+    mesh = ts._init(0, 1, str(tmp_path / "store"), backend="nccl")
+    try:
+        ss, hs = ts._stream_pair(mesh, torch_device=cuda, tile=128)
+        assert ss.compiled.groups[0].engine == "torch-sharded"
+        ts._check_stream(ss, hs, np.random.default_rng(13))
+        assert ts._k1_launches_per_call(ss.run) == (2, [])
+        vb = np.random.default_rng(1).integers(0, 100, (8, ss.graph.n)).astype(np.float64)
+        assert ts._k1_launches_per_call(lambda: ss.run_many(vb)) == (2, [])
+        ts._check_nan(ss, hs, shard=0)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_session_gloo_world2_on_one_card(cuda, tmp_path):
+    """World 2 over gloo, both ranks on ``cuda:0``: each rank's stream
+    bitwise its single-host session, 2 K1 launches a rank per ``run()``,
+    a NaN that only rank 1 reduces kept; both ranks hold one digest."""
+    import test_torch_sharded as ts
+
+    outs = ts._spawn("stream_cuda", 2, tmp_path, SHARDED_BACKEND="gloo")
+    assert len({(p.parent / f"{p.name}.txt").read_text() for p in outs}) == 1
+
+
+def test_sharded_session_nccl_world2(cuda, tmp_path):
+    """World 2 over NCCL, one rank a card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("NCCL at world size 2 needs two cards (it refuses two ranks on one)")
+    import test_torch_sharded as ts
+
+    outs = ts._spawn("stream_cuda", 2, tmp_path, SHARDED_BACKEND="nccl")
+    assert len({(p.parent / f"{p.name}.txt").read_text() for p in outs}) == 1

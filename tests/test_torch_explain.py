@@ -28,7 +28,7 @@ pytest.importorskip("jax")
 from test_torch_replica import PORT, REF, stream  # noqa: E402
 from test_torch_service import _same, khop_batch  # noqa: E402
 
-ENGINE = {"jax": "torch", "jax-iindex": "torch-iindex"}
+ENGINE = {"jax": "torch", "jax-iindex": "torch-iindex", "jax-sharded": "torch-sharded"}
 
 
 def _er(pkg, n, deg, seed, directed=False):
@@ -153,9 +153,9 @@ def test_explain_matches_reference_report(case):
     r, p = _explain_view(ref.explain()), _explain_view(port.explain())
     assert p["groups"] and len(p["groups"]) == len(r["groups"])
     for rg, pg in zip(r["groups"], p["groups"]):
-        # every port candidate has the reference's verdict and reason; the
-        # reference's sharded engine has no port yet
-        assert set(pg["candidates"]) == set(rg["candidates"]) - {"jax-sharded"}
+        # every candidate, the sharded engine included, has the
+        # reference's verdict and reason
+        assert set(pg["candidates"]) == set(rg["candidates"])
         for name, verdict in pg["candidates"].items():
             assert verdict == rg["candidates"][name], name
         assert all(reason for _, reason in pg["candidates"].values())

@@ -50,11 +50,11 @@ def test_no_source_imports_jax_or_reference():
 
 @pytest.mark.parametrize("module", ["repro_torch.serve", "repro_torch.obs.audit",
                                     "repro_torch.serve.cluster", "repro_torch.obs.explain",
-                                    "repro_torch.obs.profile"])
+                                    "repro_torch.obs.profile", "repro_torch.distributed"])
 def test_serving_tier_imports_stand_alone(module):
     """The serving tier (service, WAL, checkpoints, replicas, the cluster,
-    health) and the audit, EXPLAIN and ANALYZE modules load neither JAX nor
-    the reference package on their own."""
+    health), the audit, EXPLAIN and ANALYZE modules and the sharded runtime
+    load neither JAX nor the reference package on their own."""
     probe = (f"import sys, {module}\n"
              "print(sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'jaxlib', 'repro')))")
