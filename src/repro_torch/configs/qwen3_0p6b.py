@@ -30,6 +30,7 @@ SMOKE = TransformerConfig(
     vocab=512,
     qk_norm=True,
     tie_embeddings=True,
+    remat=False,
 )
 
 

@@ -15,7 +15,13 @@ import importlib
 from typing import Any, Dict
 
 ARCH_MODULES = {
+    "minitron-4b": "repro_torch.configs.minitron_4b",
     "qwen3-0.6b": "repro_torch.configs.qwen3_0p6b",
+    "minitron-8b": "repro_torch.configs.minitron_8b",
+    "graphsage-reddit": "repro_torch.configs.graphsage_reddit",
+    "meshgraphnet": "repro_torch.configs.meshgraphnet",
+    "gcn-cora": "repro_torch.configs.gcn_cora",
+    "gat-cora": "repro_torch.configs.gat_cora",
     "fm": "repro_torch.configs.fm_criteo",
 }
 
@@ -31,7 +37,7 @@ class ShapeCase:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     name: str
-    family: str  # lm-dense | recsys
+    family: str  # lm-dense | gnn | recsys
     model_cfg: Any
     smoke_cfg: Any
     shapes: Dict[str, ShapeCase]
@@ -48,6 +54,11 @@ def get_arch(name: str) -> ArchSpec:
     return _cache[name]
 
 
+def ARCHS():
+    """The archs the port registers, in the reference's order."""
+    return list(ARCH_MODULES)
+
+
 # ----------------------- shared shape tables --------------------------- #
 LM_SHAPES = {
     "train_4k": ShapeCase("train_4k", "train", dict(seq=4096, batch=256)),
@@ -55,6 +66,25 @@ LM_SHAPES = {
     "decode_32k": ShapeCase("decode_32k", "decode", dict(seq=32768, batch=128)),
     "long_500k": ShapeCase("long_500k", "decode", dict(seq=524288, batch=1),
                            "long-context decode; needs sub-quadratic attention"),
+}
+
+GNN_SHAPES = {
+    "full_graph_sm": ShapeCase(
+        "full_graph_sm", "train", dict(n=2708, e=10556, d_feat=1433, classes=7)
+    ),
+    "minibatch_lg": ShapeCase(
+        "minibatch_lg", "train",
+        dict(n=232965, e=114615892, batch_nodes=1024, fan1=15, fan2=10,
+             d_feat=602, classes=41,
+             sub_n=1024 * (1 + 15 + 150), sub_e=1024 * 15 + 1024 * 150),
+        "sampled training: device sees the padded sampled subgraph",
+    ),
+    "ogb_products": ShapeCase(
+        "ogb_products", "train", dict(n=2449029, e=61859140, d_feat=100, classes=47)
+    ),
+    "molecule": ShapeCase(
+        "molecule", "train", dict(n=30, e=64, batch=128, d_feat=16, classes=1)
+    ),
 }
 
 RECSYS_SHAPES = {

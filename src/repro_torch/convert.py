@@ -133,3 +133,26 @@ def fm_params_from_arrays(tree: Mapping, cfg, torch_device="cuda"):
     dev = resolve_device(torch_device)
     return {k: torch.from_numpy(np.array(tree[k], np.float32)).to(dev, cfg.pdtype)
             for k in ("emb", "w1", "bias")}
+
+
+def gnn_params_from_arrays(tree: Mapping, cfg, torch_device="cuda"):
+    """The port's GNN params on ``torch_device`` from the reference's
+    ``gcn_init`` / ``sage_init`` / ``gat_init`` / ``mgn_init`` tree as numpy
+    arrays, each in ``cfg``'s param dtype.  MeshGraphNet's ``proc`` arrives
+    stacked ``[L, ...]`` for ``lax.scan`` and leaves as a list of ``L``
+    per-step dicts."""
+    dev = resolve_device(torch_device)
+
+    def conv(node, step=None):
+        if isinstance(node, Mapping):
+            return {k: conv(v, step) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v, step) for v in node]
+        a = np.asarray(node, np.float32)
+        a = a if step is None else a[step]
+        return torch.from_numpy(np.array(a)).to(dev, cfg.pdtype)
+
+    out = {k: conv(v) for k, v in tree.items() if k != "proc"}
+    if "proc" in tree:
+        out["proc"] = [conv(tree["proc"], i) for i in range(cfg.n_layers)]
+    return out

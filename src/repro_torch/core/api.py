@@ -835,6 +835,15 @@ class Session:
         ]
         return _combine_program(prog, grp.aggs, term_outs)
 
+    def _run_view_group(self, view: "SessionView", gi: int, values):
+        """Group ``gi`` at ``view``'s version: the executor a view calls (a
+        :class:`~repro_torch.distributed.window_runtime.ShardedSession`
+        that leads its followers replicates the call first)."""
+        return self._exec_group(gi, view.artifacts[gi], values, graph=view.graph)
+
+    def _run_view_group_many(self, view: "SessionView", gi: int, vb):
+        return self._exec_group_many(gi, view.artifacts[gi], vb, graph=view.graph)
+
     # ------------------------------------------------------------------ #
     def snapshot(self) -> "SessionView":
         """Pin the current version for reads (see :class:`SessionView`).
@@ -1187,8 +1196,7 @@ class SessionView:
                 return hit
         with self.session.tracer.span("query.group", cat="query", group=gi,
                                       version=self.version):
-            out = self.session._exec_group(gi, self.artifacts[gi], values,
-                                           graph=self.graph)
+            out = self.session._run_view_group(self, gi, values)
         if values is None and cache is not None:
             cache.put_group(gi, self.version, out)
         return out
@@ -1199,9 +1207,7 @@ class SessionView:
         flush path)."""
         with self.session.tracer.span("query.group", cat="query", group=gi,
                                       version=self.version, batched=True):
-            return self.session._exec_group_many(gi, self.artifacts[gi],
-                                                 values_batch,
-                                                 graph=self.graph)
+            return self.session._run_view_group_many(self, gi, values_batch)
 
     def run(self, values=None) -> List[np.ndarray]:
         groups = range(len(self.session.compiled.groups))

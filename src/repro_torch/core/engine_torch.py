@@ -469,9 +469,28 @@ def query_dbindex_multi(plan: DBIndexPlan, values, aggs: tuple):
 
 
 def query_dbindex(plan: DBIndexPlan, values, agg: str = "sum"):
-    """values: [n] vertex attribute -> [n] window aggregates (one aggregate
-    through the fused executor)."""
-    return query_dbindex_multi(plan, values, (agg,))[0]
+    """values: [n] (or [n, D]) vertex attribute -> [n(, D)] window
+    aggregates, one aggregate through the fused executor.
+
+    ``[n, D]`` features ride K1's columns, as the reference's one-aggregate
+    query takes them: each pass is still one K1 launch for all ``D``
+    columns, and column ``j`` is bitwise the ``[n]`` query of ``X[:, j]``
+    (K1's order is fixed by the plan).  Over ``[n, D]``, sum, min and max
+    return ``[n, D]`` and count ``[n]``; avg raises, as the reference's
+    ``[n, D] / [n]`` broadcast does."""
+    v = _as_values(values, plan.device)
+    if v.dim() == 1:
+        return query_dbindex_multi(plan, v, (agg,))[0]
+    if v.dim() != 2 or v.shape[0] != plan.n:
+        raise ValueError(f"values must be [n] or [n, D] with n = {plan.n}, "
+                         f"not {tuple(v.shape)}")
+    if agg not in ("sum", "count", "min", "max"):
+        raise ValueError(f"{agg!r} over [n, D] features: the reference's "
+                         "one-aggregate query takes sum, count, min and max")
+    cols = v[:, :1] if agg == "count" else v  # count reads no values
+    chans = _query_dbindex_multi_channels(plan, cols.contiguous(), (agg,))
+    out = pack_channels((agg,)).finalize(0, chans, xp=TORCH_XP)
+    return out[:, 0] if agg == "count" else out
 
 
 def query_dbindex_sharded_multi(plan: DBIndexPlan, values, aggs: tuple,

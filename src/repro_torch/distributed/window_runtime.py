@@ -1077,7 +1077,7 @@ class ShardedStreamState(StreamingEngine):
 # ---------------------------------------------------------------------- #
 #  ShardedSession — Session(mesh=...) across the mesh
 # ---------------------------------------------------------------------- #
-from repro_torch.core.api import Session  # noqa: E402  (api imports us lazily)
+from repro_torch.core.api import Session, SessionView  # noqa: E402  (api imports us lazily)
 
 
 class ShardedSession(Session):
@@ -1091,6 +1091,16 @@ class ShardedSession(Session):
     headroom, method, pins, ``compact_garbage``, ``torch_device``, ...)
     keeps its meaning; ``compact_garbage=None`` means 0.25 here (the
     in-place compaction is shape-stable, so it fires before a rebuild).
+
+    One caller over every rank (a :class:`~repro_torch.serve.WindowService`,
+    an ``AsyncWindowService`` with its flusher thread): the group's lowest
+    rank calls :meth:`lead`, every other rank :meth:`follow`.  The leader's
+    session then sends each call that reaches a collective (a sharded
+    group's query at a view's version, ``update``, ``analyze``) as a small
+    op record over a gloo side group, under the session's lock, before it
+    runs it; a follower replays every record on its own session, in the
+    leader's order, until :meth:`stop_followers`.  The service stays
+    unaware of the mesh.
     """
 
     _sharded = True
@@ -1099,6 +1109,8 @@ class ShardedSession(Session):
         if mesh is None:
             raise ValueError("ShardedSession needs a mesh")
         self.axes = _axes_tuple(axis)
+        #: the op channel while this rank leads (see :meth:`lead`)
+        self._ops: Optional[_OpChannel] = None
         super().__init__(g, specs, mesh=mesh, axis=axis, **kw)
 
     # ------------------------------------------------------------------ #
@@ -1141,3 +1153,141 @@ class ShardedSession(Session):
                 outs = query_sharded_many(plan, vb, tuple(aggs))
                 return {a: o.cpu().numpy() for a, o in zip(aggs, outs)}
         return super()._exec_term_many(grp, window, index, plan, vb, g, aggs)
+
+    # ------------------------------------------------------------------ #
+    #  One caller over every rank: the leader replicates, followers replay
+    # ------------------------------------------------------------------ #
+    def _combine_group(self):
+        return _mesh_shard(self.mesh, self.axes)[2]
+
+    def lead(self) -> "ShardedSession":
+        """Make this rank, the lowest of the combine group, the one caller
+        of the session: from now on every call of it that reaches a
+        collective is first sent to the followers (:meth:`follow`, called
+        by every other rank of the group; both sides create the gloo side
+        group together).  Returns the session."""
+        self._ops = _OpChannel(self._combine_group(), lead=True)
+        return self
+
+    def stop_followers(self) -> None:
+        """End every follower's :meth:`follow` loop; this rank leads no
+        more."""
+        ch, self._ops = self._ops, None
+        if ch is not None:
+            with self._lock:
+                ch.send(("stop",))
+
+    def follow(self) -> int:
+        """Replay the leader's op records on this rank's session until the
+        leader stops; returns the records replayed.  A record whose replay
+        raises ends the loop with that error: this rank has left the
+        leader's order, and the leader's next collective cannot complete, so
+        the caller must fail (end the process) rather than go on."""
+        ch = _OpChannel(self._combine_group(), lead=False)
+        views: Dict[int, SessionView] = {}
+        replayed = 0
+        while True:
+            rec = ch.receive()
+            if rec[0] == "stop":
+                return replayed
+            replayed += 1
+            self._replay(rec, views)
+
+    def _replay(self, rec, views: Dict[int, SessionView]) -> None:
+        op = rec[0]
+        if op == "update":
+            _, batch, live = rec
+            # hold the versions the leader's live views hold, so this rank
+            # clones (copy-on-write) where the leader did
+            keep = {v: views[v] for v in live if v in views}
+            if self.version in live and self.version not in keep:
+                keep[self.version] = self.snapshot()
+            views.clear()
+            views.update(keep)
+            self.update(batch)
+        elif op == "analyze":
+            self.analyze(rec[1], values=rec[2])
+        else:
+            _, gi, version, values = rec
+            view = views.get(version)
+            if view is None and version == self.version:
+                view = self.snapshot()
+            if view is None:
+                raise RuntimeError(f"no view at version {version} "
+                                   f"(head {self.version}): diverged from the leader")
+            if op == "group":
+                self._run_view_group(view, gi, values)
+            else:
+                self._run_view_group_many(view, gi, values)
+
+    def _leading(self, gi: Optional[int] = None) -> bool:
+        if self._ops is None or not self._ops.followers:
+            return False
+        return gi is None or self.registry.capability(
+            self.compiled.groups[gi].engine).sharded
+
+    def _run_view_group(self, view, gi: int, values):
+        if not self._leading(gi):
+            return super()._run_view_group(view, gi, values)
+        with self._lock:
+            self._ops.send(("group", gi, view.version, _portable(values)))
+            return super()._run_view_group(view, gi, values)
+
+    def _run_view_group_many(self, view, gi: int, vb):
+        if not self._leading(gi):
+            return super()._run_view_group_many(view, gi, vb)
+        with self._lock:
+            self._ops.send(("group_many", gi, view.version, _portable(vb)))
+            return super()._run_view_group_many(view, gi, vb)
+
+    def _update_inner(self, batch) -> Dict:
+        if self._leading():  # Session.update holds the lock
+            live = sorted({v.version for v in list(self._views)})
+            self._ops.send(("update", batch, live))
+        return super()._update_inner(batch)
+
+    def analyze(self, spec=None, values=None):
+        if not self._leading():
+            return super().analyze(spec, values=values)
+        with self._lock:
+            self._ops.send(("analyze", spec, _portable(values)))
+            return super().analyze(spec, values=values)
+
+
+def _portable(values):
+    """Op-record values as host arrays (a CUDA tensor would unpickle onto
+    the leader's card)."""
+    if isinstance(values, torch.Tensor):
+        return values.cpu().numpy()
+    if isinstance(values, dict):
+        return {k: _portable(v) for k, v in values.items()}
+    return values
+
+
+class _OpChannel:
+    """A gloo side group over the combine group's ranks, the lowest
+    leading: :meth:`send` broadcasts one picklable record from the leader,
+    :meth:`receive` takes it on a follower.  Records are few and small (an
+    op, a group, a version, the values or the ``UpdateBatch``), so they
+    travel as pickled objects on the host whatever backend the mesh uses."""
+
+    def __init__(self, group, lead: bool):
+        ranks = dist.get_process_group_ranks(group)
+        self.leader = min(ranks)
+        me = dist.get_rank()
+        if lead != (me == self.leader):
+            raise ValueError(f"rank {me}: the group's lowest rank {self.leader} "
+                             "leads and every other rank follows")
+        self.followers = len(ranks) - 1
+        self.group = (dist.new_group(ranks, backend="gloo",
+                                     use_local_synchronization=True)
+                      if self.followers else None)
+
+    def send(self, rec) -> None:
+        if self.followers:
+            dist.broadcast_object_list([rec], src=self.leader, group=self.group)
+
+    def receive(self):
+        box = [None]
+        dist.broadcast_object_list(box, src=self.leader, group=self.group)
+        return box[0]

@@ -9,6 +9,8 @@
   over query and key chunks, O(S * chunk) memory, float32 scores, p and
   accumulator (the reference's ``flash_jnp``).  A ragged last chunk (S not
   a multiple of the chunk) is sliced, not reshaped, so any S >= 1 runs.
+  ``p_dtype`` rounds p to that dtype before the PV product, as the kernels
+  do for bf16 (the row sums keep the unrounded p).
   Chunks wholly outside the mask are skipped; that gives the same bits as
   the reference's full scan, where such a chunk adds p = 0 with alpha = 1,
   or is wiped by alpha = 0 at the first valid chunk.
@@ -84,7 +86,8 @@ def decode_ref(q, k_cache, v_cache, length, window: Optional[int] = None):
 
 
 def flash_torch(q, k, v, *, causal: bool = True, q_chunk: int = 512,
-                kv_chunk: int = 512, local_window: Optional[int] = None):
+                kv_chunk: int = 512, local_window: Optional[int] = None,
+                p_dtype: Optional[torch.dtype] = None):
     """q: [B, Hq, S, D]; k/v: [B, Hkv, S, D] -> [B, Hq, S, D] (f32 acc)."""
     b, hq, s, d = q.shape
     hkv = k.shape[1]
@@ -121,6 +124,8 @@ def flash_torch(q, k, v, *, causal: bool = True, q_chunk: int = 512,
             p = torch.exp(sc - m_new[..., None])
             alpha = torch.exp(m - m_new)
             l = l * alpha + p.sum(dim=-1)
+            if p_dtype is not None:
+                p = p.to(p_dtype).float()
             acc = acc * alpha[..., None] + torch.einsum(
                 "bhgqk,bhkd->bhgqd", p, v[:, :, k0:k1].float())
             m = m_new

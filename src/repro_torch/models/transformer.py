@@ -49,6 +49,9 @@ class TransformerConfig:
     local_window: Optional[int] = None  # sliding-window attention (plain paths)
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    # the reference's backward checkpointing of each layer: no effect in a
+    # forward-only port (serving), kept so configs read the same
+    remat: bool = True
     # flash_torch chunking (the kernel tiles on its own)
     attn_q_chunk: int = 512
     attn_kv_chunk: int = 512

@@ -741,3 +741,148 @@ def test_sharded_session_nccl_world2(cuda, tmp_path):
 
     outs = ts._spawn("stream_cuda", 2, tmp_path, SHARDED_BACKEND="nccl")
     assert len({(p.parent / f"{p.name}.txt").read_text() for p in outs}) == 1
+
+
+# ---------------------------------------------------------------------- #
+#  Serving over a sharded session on the card (tests/test_torch_sharded_service.py)
+# ---------------------------------------------------------------------- #
+def test_sharded_service_nccl_world1_bitwise_single_host(cuda, tmp_path):
+    """World 1 over NCCL in this process: the reference's service scenario
+    (one coalesced launch for the 3-ticket flush, cached point reads
+    across updates) bitwise the same scenario on a single-host session on
+    the card."""
+    import torch.distributed as dist
+
+    import test_torch_sharded as ts
+    import test_torch_sharded_service as tss
+
+    mesh = ts._init(0, 1, str(tmp_path / "store"), backend="nccl")
+    try:
+        sess, _, rng = tss._service_pair(mesh, cuda)
+        got, _ = tss._service_scenario(sess, rng)
+    finally:
+        dist.destroy_process_group()
+    host, _, hrng = tss._service_pair(None, cuda)
+    want, _ = tss._service_scenario(host, hrng)
+    assert [g.tobytes() for g in got] == [w.tobytes() for w in want]
+
+
+def test_sharded_service_gloo_world2_on_one_card(cuda, tmp_path):
+    """World 2 over gloo, both ranks on ``cuda:0``: rank 0 leads the
+    service and the async service, rank 1 follows; no hang, every ticket
+    of rank 0 bitwise the single-host scenario on the card."""
+    import pathlib
+
+    import test_torch_sharded_service as tss
+
+    outs, _ = tss._spawn("service", 2, tmp_path, SERVICE_DEVICE="cuda")
+    saved = np.load(f"{outs[0]}.npz")
+    got = [saved[f"arr_{i}"] for i in range(len(saved.files))]
+    host, _, hrng = tss._service_pair(None, cuda)
+    want, _ = tss._service_scenario(host, hrng)
+    assert [g.tobytes() for g in got] == [w.tobytes() for w in want]
+    assert int(pathlib.Path(f"{outs[0]}.txt").read_text()) == tss.ASYNC_TICKETS
+
+
+# ---------------------------------------------------------------------- #
+#  The GNN family and khop_aggregate on K1 (tests/test_torch_gnn.py)
+# ---------------------------------------------------------------------- #
+GNN_K1_PER_LAYER = {"gcn": 1, "sage": 1, "gat": 3, "meshgraphnet": 1}
+
+
+@pytest.mark.parametrize("mod", ["gcn_cora", "gat_cora", "graphsage_reddit", "meshgraphnet"])
+def test_gnn_smoke_forward_on_card_matches_cpu(cuda, mod):
+    """Each SMOKE GNN forward on the card: K1 launches as stated (GCN and
+    SAGE 1 a layer, GAT 3, MGN 1 a step), two forwards bitwise equal, the
+    output within rtol = 1e-4, atol = 1e-5 of the same forward on the CPU
+    (K1's plain version; the orders of the adds differ)."""
+    import importlib
+
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
+    from repro_torch.models import gnn
+
+    cfg = importlib.import_module(f"repro_torch.configs.{mod}").SMOKE
+    rng = np.random.default_rng(3)
+    n, e = 300, 1500
+    dst = np.concatenate([np.sort(rng.integers(0, n, e)), np.full(36, n)]).astype(np.int32)
+    src = np.concatenate([rng.integers(0, n, e), np.full(36, n)]).astype(np.int32)
+    w = rng.random(src.size).astype(np.float32)
+    x = rng.standard_normal((n, cfg.d_in)).astype(np.float32)
+    ef = rng.standard_normal((src.size, 3)).astype(np.float32)
+    init = {"gcn": gnn.gcn_init, "sage": gnn.sage_init, "gat": gnn.gat_init,
+            "meshgraphnet": gnn.mgn_init}[cfg.kind]
+    params = init(torch.Generator().manual_seed(0), cfg)
+
+    def run(dev):
+        p = _to(params, dev)
+        plan = gnn.edge_plan(src, dst, n, torch_device=dev)
+        xs, efs = torch.from_numpy(x).to(dev), torch.from_numpy(ef).to(dev)
+        s_t, d_t = torch.from_numpy(src).to(dev), torch.from_numpy(dst).to(dev)
+        if cfg.kind == "gcn":
+            return gnn.gcn_forward(p, xs, s_t, d_t, torch.from_numpy(w).to(dev), n, cfg, plan=plan)
+        if cfg.kind == "sage":
+            return gnn.sage_forward(p, xs, s_t, d_t, n, cfg, plan=plan)
+        if cfg.kind == "gat":
+            return gnn.gat_forward(p, xs, s_t, d_t, n, cfg, plan=plan)
+        return gnn.mgn_forward(p, xs, efs, s_t, d_t, n, cfg, plan=plan)
+
+    before = segment_sum_tiled.launches
+    got = run(cuda)
+    torch.cuda.synchronize()
+    assert segment_sum_tiled.launches - before == GNN_K1_PER_LAYER[cfg.kind] * cfg.n_layers
+    assert torch.equal(got, run(cuda))
+    torch.testing.assert_close(got.cpu(), run(torch.device("cpu")), rtol=1e-4, atol=1e-5)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("agg", ["sum", "min", "max", "count"])
+def test_khop_features_on_card_bitwise_cpu(cuda, agg):
+    """``query_dbindex`` over integer ``[n, D]`` features on the card: 2 K1
+    launches for sum (1 for count, which reads no values), bitwise the
+    CPU's plain version; ``khop_aggregate`` is the sum."""
+    from repro_torch.core.dbindex import build_dbindex
+    from repro_torch.core.engine_torch import plan_from_dbindex, query_dbindex
+    from repro_torch.core.windows import KHopWindow
+    from repro_torch.graphs.generators import erdos_renyi
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
+    from repro_torch.models import gnn
+
+    idx = build_dbindex(erdos_renyi(5000, 8.0, seed=2), KHopWindow(2), method="emc")
+    x = np.random.default_rng(4).integers(0, 100, (5000, 24)).astype(np.float32)
+    want = query_dbindex(plan_from_dbindex(idx, torch_device="cpu"), x, agg)
+    plan = plan_from_dbindex(idx, torch_device=cuda)
+    before = segment_sum_tiled.launches
+    got = query_dbindex(plan, torch.from_numpy(x).to(cuda), agg)
+    torch.cuda.synchronize()
+    if agg == "sum":
+        assert segment_sum_tiled.launches - before == 2
+        assert torch.equal(gnn.khop_aggregate(plan, torch.from_numpy(x).to(cuda)), got)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_minitron_prefill_on_card_takes_the_sm90_route(cuda):
+    """minitron-8b's widths (d 4096, 32 heads over 8 kv heads, head_dim
+    128) cut to 2 layers and a 512-token vocabulary: one K3 launch a layer
+    on the tensor-core route, logits close to the plain backend's (the
+    repo's bf16 tolerance)."""
+    import dataclasses
+
+    from repro_torch.configs.minitron_8b import CONFIG
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(CONFIG, n_layers=2, vocab=512, d_ff=1024)
+    params = T.init(torch.Generator(device=cuda).manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 300), device=cuda)
+    before = flash_attention.launches_by_route["sm90"]
+    _, logits = T.prefill(params, toks, cfg)
+    assert flash_attention.launches_by_route["sm90"] == before + cfg.n_layers
+    _, plain = T.prefill(params, toks, cfg, attn_backend="flash_torch")
+    torch.testing.assert_close(logits, plain, atol=0.06, rtol=0.05)

@@ -83,6 +83,27 @@ def test_flash_torch_matches_flash_jnp(dtype, causal, window):
                                **(F32 if dtype == "float32" else BF16_FLASH))
 
 
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_torch_rounded_p_matches_pallas_interpret_bf16(d):
+    """``p_dtype=bfloat16`` is the kernels' arithmetic (p rounded to v's
+    dtype before PV, the row sums unrounded): in bf16 it matches the
+    reference's Pallas kernel, which rounds p the same way, within one bf16
+    step of the output (``BF16_FLASH``) on the kernel's chunks, and in all
+    but 1e-3 of the outputs bit for bit."""
+    (q, k, v), (jq, jk, jv) = _qkv(1, 4, 2, 256, d, seed=d + 5, dtype="bfloat16")
+    ref = r_flash_attention(jq, jk, jv, causal=True, bq=128, bk=128, interpret=True)
+    got = flash_torch(q, k, v, causal=True, q_chunk=128, kv_chunk=128,
+                      p_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), _np(ref), **BF16_FLASH)
+    # the same bits but for a few outputs that a float32 reordering tips
+    # over a bf16 boundary; the default, p kept in float32, differs in
+    # over a tenth
+    assert (_np(got) != _np(ref)).mean() < 1e-3
+    plain = flash_torch(q, k, v, causal=True, q_chunk=128, kv_chunk=128)
+    assert (_np(plain) != _np(ref)).mean() > 0.1
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("window", [None, 17])
 def test_mha_ref_matches_reference(dtype, window):

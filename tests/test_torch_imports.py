@@ -50,14 +50,21 @@ def test_no_source_imports_jax_or_reference():
 
 @pytest.mark.parametrize("module", ["repro_torch.serve", "repro_torch.obs.audit",
                                     "repro_torch.serve.cluster", "repro_torch.obs.explain",
-                                    "repro_torch.obs.profile", "repro_torch.distributed"])
+                                    "repro_torch.obs.profile", "repro_torch.distributed",
+                                    "repro_torch.models.gnn", "repro_torch.configs.registry",
+                                    "repro_torch.configs.gcn_cora", "repro_torch.configs.gat_cora",
+                                    "repro_torch.configs.graphsage_reddit",
+                                    "repro_torch.configs.meshgraphnet",
+                                    "repro_torch.configs.minitron_4b",
+                                    "repro_torch.configs.minitron_8b"])
 def test_serving_tier_imports_stand_alone(module):
     """The serving tier (service, WAL, checkpoints, replicas, the cluster,
-    health), the audit, EXPLAIN and ANALYZE modules and the sharded runtime
-    load neither JAX nor the reference package on their own."""
+    health), the audit, EXPLAIN and ANALYZE modules, the sharded runtime,
+    the GNN family and the configs load neither JAX nor the reference
+    package on their own (nor Triton)."""
     probe = (f"import sys, {module}\n"
              "print(sorted(m for m in sys.modules if m.split('.')[0] in "
-             "('jax', 'jaxlib', 'repro')))")
+             "('jax', 'jaxlib', 'triton', 'repro')))")
     out = subprocess.run(
         [sys.executable, "-c", probe], capture_output=True, text=True,
         timeout=120, cwd=PKG.parents[1],
