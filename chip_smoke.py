@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one GPU and check them.
 
-    python3 chip_smoke.py    # full width: ER n=100k, degree 10, KHop(2),
+    python3 chip_smoke.py    # full width: ER n=60k, degree 10, KHop(2),
                              # served by the window service with a WAL;
                              # the topological window on a 60k DAG;
-                             # qwen3-0.6b and minitron-8b serving; the
+                             # qwen3-0.6b, minitron-8b, qwen2-moe-a2.7b
+                             # and grok-1-314b (depth 2) serving; the
                              # Criteo-shaped FM; GCN, GAT, GraphSAGE and
                              # MeshGraphNet at full width; a two-follower
                              # cluster on ER n=30k; the sharded runtime on
@@ -117,8 +118,9 @@ Phases, one JSON object per line:
     honoured in its ptxas log, HGMMA in its SASS (``cuobjdump -sass``);
     then against ``flash_torch`` on unit-normal q/k/v at the qwen3 serve
     prefill's shape (B 8, Hq 16, Hkv 8, S 2048, D 64), at S = 32,768 (B
-    1), at minitron-8b's prefill (B 8, Hq 32, Hkv 8, S 2048, D 128) and
-    at the ragged S = 2065, and the CUDA-core route on one float32 case; each checks the
+    1), at the D = 128 prefills of minitron-8b (Hq 32, Hkv 8),
+    qwen2-moe-a2.7b (Hq = Hkv = 16: the odd-group pairing) and grok-1-314b
+    (Hq 48, Hkv 8), each B 8, S 2048, and at the ragged S = 2065, and the CUDA-core route on one float32 case; each checks the
     route its launches took and is bitwise across two launches; timed
     beside the plain version, ``scaled_dot_product_attention`` and the bound
     (bytes of q, k, v, o; causal FLOPs at the bf16 peak, or the float32 peak
@@ -127,8 +129,11 @@ Phases, one JSON object per line:
     262,144 (F 39, K 10); bitwise across two launches; timed likewise.
 14. ``serve_lm`` — qwen3-0.6b at full width (28 layers, d 1024, vocab
     151,936, random seeded weights), then minitron-8b (32 layers, d 4096,
-    vocab 256,000, head_dim 128, ~20 GB in bf16; freed before the next
-    phase), each: ``ServeEngine.generate`` on 8 requests
+    vocab 256,000, head_dim 128, ~20 GB in bf16), qwen2-moe-a2.7b (24
+    layers, 60 routed experts top-4 and a shared SwiGLU, 28.6 GB) and
+    grok-1-314b at full width with its depth cut to 2 of 64 layers
+    (``LM_DEPTH``; 8 experts top-2, ~23 GB), each freed before the next,
+    each: ``ServeEngine.generate`` on 8 requests
     of 2048 tokens, 32 new each, twice (bitwise equal); K3's counts reset
     just before the first and read just after (one per layer, all on
     the tensor-core route); the
@@ -136,8 +141,11 @@ Phases, one JSON object per line:
     to bf16 before PV, as the kernel rounds it): each layer's attention on
     the model's own q, k, v within K3's bound; the logits within 0.06 +
     0.05 |logit|, all of qwen3's and all but ``LM_LOGITS_SPREAD`` of
-    minitron's; top-1 equal where the margin is clear; PyTorch's SDPA
-    prefill read beside it; prefill and decode
+    minitron's and the MoE archs'; top-1 equal where the margin is clear;
+    PyTorch's SDPA prefill read beside it; for the MoE archs each layer's
+    routing (choices dropped by capacity, the most tokens an expert took,
+    tokens routed otherwise by the kernel prefill than by the plain one,
+    each row's first such flip a near tie); prefill and decode
     timed and profiled (device time by kernel, idle share; the profiled
     prefill must show one K3 launch a layer).
 15. ``serve_fm`` — the FM at full width (80.31 M rows): ``forward`` with the
@@ -156,7 +164,8 @@ Phases, one JSON object per line:
     GAT 3, MGN 1 a step), two forwards bitwise equal, the output against
     the plain forward (K1's plain version in the kernel's place) within
     ``GNN_TOL`` * (|plain| + rms(plain)) in every element, timed beside it,
-    one forward profiled; TF32 off.  With it the k-hop ``khop_aggregate``
+    one forward profiled, K1's bound summed over one more forward's
+    launches; TF32 off.  With it the k-hop ``khop_aggregate``
     result of 7c.
 15b. ``cluster`` — the cluster tier on a graph and a generator of its own
     (ER n = 30,000, degree 10, ``CLUSTER_N``: cut from 100,000 by the
@@ -215,10 +224,10 @@ Phases, one JSON object per line:
     shape (c) is not in the process while the paths above are timed) at
     three shapes, words and occupancy masks bitwise against its
     plain version: (a) one hop from one batch's endpoints (what every
-    ``update()`` runs), (b) hop 2 from 4096 seeds at n = 100k, (c) the same
+    ``update()`` runs), (b) hop 2 from 4096 seeds at ``--n``, (c) the same
     on ER n = 2,000,000; each timed per call as K1 is and on the card
     (events around back-to-back launches of the library's entry point: the
-    wrapper's host time exceeds the kernel's at n = 100k), with its input's
+    wrapper's host time exceeds the kernel's at ``--n``), with its input's
     nonzero shares, the plain version, ``sparse.mm`` at (a) and (b), the
     mask pre-pass, a memset of the output, the wrapper's host time alone
     (its entry point stubbed), its bound (the bytes the masked design must
@@ -404,12 +413,7 @@ def _k1_pass(name, tp, x, monoids, dev, reps, rng, nan_case):
         check(torch.equal(torch.cat(scatter_route(), dim=1)[:sink], p[:, n_sum:]),
               f"K1 {name}: the scatter_reduce route disagrees")
     valid_rows = int(ok.sum())
-    # least bytes: each valid row's gather index and segment id, each value
-    # row the valid rows gather (once), m2out and the output
-    gathered = int(torch.unique(tp.gather_padded.reshape(-1)[ok]).numel())
-    moved = (2 * valid_rows * 4 + gathered * x.shape[1] * x.element_size()
-             + nbytes(tp.m2out, k1))
-    b, by = bound_ms(moved, valid_rows * x.shape[1])
+    b, by = k1_bound(tp, x, k1)
     out = {
         "rows": int(sid.numel()), "valid_rows": valid_rows,
         "channels": int(x.shape[1]), "monoids": list(monoids),
@@ -424,6 +428,22 @@ def _k1_pass(name, tp, x, monoids, dev, reps, rng, nan_case):
         out["scatter_reduce_ms"] = time_ms(scatter_route, dev, reps)
         out["library_ms"] += out["scatter_reduce_ms"]
     return out
+
+
+def k1_bound(tp, x, out) -> tuple:
+    """K1's least time for one launch on tile plan ``tp`` over values ``x``
+    [N, C] into ``out`` (:func:`bound_ms`): the bytes are each valid row's
+    gather index and segment id, each value row the valid rows gather
+    (once), ``m2out`` and the output; the operations one per valid row and
+    column."""
+    import torch
+
+    ok = tp.seg_tiles.reshape(-1) >= 0
+    valid_rows = int(ok.sum())
+    gathered = int(torch.unique(tp.gather_padded.reshape(-1)[ok]).numel())
+    moved = (2 * valid_rows * 4 + gathered * x.shape[1] * x.element_size()
+             + nbytes(tp.m2out, out))
+    return bound_ms(moved, valid_rows * x.shape[1])
 
 
 def kernel_segment_sum(plan, vals, dev, reps, rng):
@@ -543,7 +563,7 @@ def _k2_shape(name, plan, x, xm, dev, reps, library=True):
     ms = time_ms(kernel, dev, slow)
     # the kernel's time on the card: events around back-to-back launches of
     # the library's entry point into fixed outputs, without the wrapper's
-    # host time (which exceeds the kernel's at n = 100k)
+    # host time (which exceeds the kernel's at the main graph's n)
     raw = k2_lib._lib("bitset_expand_u32")
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [t.data_ptr() for t in (x, xm, plan.gather_padded, plan.row_ptr, plan.pad_before)]
@@ -580,7 +600,7 @@ def _k2_shape(name, plan, x, xm, dev, reps, library=True):
     if library:
         # one sparse product (A + I) @ membership, whose non-zeros are the
         # next hop's bits (dense [n, 32 W] float32: 32 GB at n = 2 M, so it
-        # is timed at n = 100,000 only)
+        # is timed at the main graph's n only)
         eye = torch.arange(n, device=dev)
         a = torch.sparse_coo_tensor(
             torch.stack([torch.cat([dst.long(), eye]), torch.cat([src.long(), eye])]),
@@ -1616,10 +1636,14 @@ def explain_analyze(sess, state, dev, phases, k1_per_run, scans_per_run):
 K3_TOL = {"p_round": 2.0**-8, "out_round": 2.0**-7, "f32": 1e-4}
 # (name, B, Hq, Hkv, S, D): the serve phase's qwen3 prefill, the sequence
 # length of LM_SHAPES["prefill_32k"] at batch 1 instead of 32, and the
-# serve phase's minitron-8b prefill (head_dim 128)
+# serve phase's minitron-8b, qwen2-moe (Hq = Hkv: the kernel's odd-group
+# pairing of two query tiles of one head) and grok-1 (a group of 6)
+# prefills (head_dim 128)
 K3_SHAPES = (("serve_prefill", 8, 16, 8, 2048, 64),
              ("prefill_32k_b1", 1, 16, 8, 32768, 64),
-             ("minitron_prefill", 8, 32, 8, 2048, 128))
+             ("minitron_prefill", 8, 32, 8, 2048, 128),
+             ("moe_prefill", 8, 16, 16, 2048, 128),
+             ("grok_prefill", 8, 48, 8, 2048, 128))
 # bf16 with S a multiple of neither the 64-row query tile nor the 128-key
 # tile; and the float32 case, which takes the CUDA-core route
 K3_RAGGED = ("ragged_2065", 2, 16, 8, 2065, 64)
@@ -1627,7 +1651,10 @@ K3_F32 = ("float32", 2, 4, 2, 1000, 128)
 # serve_lm: (requests, prompt tokens, new tokens each), for each arch in
 # LM_ARCHS, one after the other (each freed before the next)
 LM_SERVE = (8, 2048, 32)
-LM_ARCHS = ("qwen3-0.6b", "minitron-8b")
+LM_ARCHS = ("qwen3-0.6b", "minitron-8b", "qwen2-moe-a2.7b", "grok-1-314b")
+# archs served with their depth cut (full width): grok-1's 64 layers are
+# ~628 GB in bf16, on no one card; 2 layers and the embeddings are ~23 GB
+LM_DEPTH = {"grok-1-314b": 2}
 # kernel prefill against plain prefill.  The plain prefill is flash_torch
 # with the kernel's rounding: p rounded to bf16 before the PV product, the
 # row sums unrounded (``_plain_attention``).  Every layer's attention of the
@@ -1641,10 +1668,18 @@ LM_ARCHS = ("qwen3-0.6b", "minitron-8b")
 # differ (the kernel's against this plain one: 270 of 2,048,000 outside,
 # largest delta 0.098; PyTorch's SDPA against flash_torch with p in
 # float32: 398, 0.117; H100 80GB HBM3, 700 W), so it may have 1e-3 of them
-# outside, none by more than 0.25.  PyTorch's SDPA prefill is read beside
-# it and gates nothing
+# outside, none by more than 0.25.  The MoE archs' plain prefill takes the
+# kernel prefill's experts (else nearly every token of qwen2-moe routes
+# otherwise somewhere in 24 layers, at near ties, and 55 % of the logits
+# leave the tolerance): qwen2-moe's 24 layers of d 2048 then carry the
+# attention's one-step differences as minitron's do (813 of 1,215,488
+# outside, largest delta 0.125; SDPA 808, 0.113; H100 80GB HBM3, 700 W),
+# so it takes minitron's allowance; grok-1 at depth 2 had none outside
+# (largest delta 0.0625) and is allowed none.  PyTorch's SDPA prefill is
+# read beside it and gates nothing
 LM_LOGITS_TOL = (0.06, 0.05)
-LM_LOGITS_SPREAD = {"qwen3-0.6b": (0.0, None), "minitron-8b": (1e-3, 0.25)}
+LM_LOGITS_SPREAD = {"qwen3-0.6b": (0.0, None), "minitron-8b": (1e-3, 0.25),
+                    "qwen2-moe-a2.7b": (1e-3, 0.25), "grok-1-314b": (0.0, None)}
 
 
 def _k3_close(got, want, vbar=None):
@@ -1883,14 +1918,18 @@ def _plain_attention(q, k, v, **_):
 
 
 def serve_lm(arch, args, dev):
-    """``arch`` (qwen3-0.6b, minitron-8b) at full width from a seeded
-    generator: ``ServeEngine`` serves 8 requests of 2048 random tokens, 32
-    new tokens each.  K3's count is reset just before the first
-    ``generate`` and read just after (one launch a layer, all on the
-    tensor-core route); the kernel prefill is then held against the plain
-    one, layer by layer within K3's bound and at the logits within
-    ``LM_LOGITS_TOL`` and ``LM_LOGITS_SPREAD`` (PyTorch's SDPA prefill read
-    beside it)."""
+    """``arch`` (qwen3-0.6b, minitron-8b, qwen2-moe-a2.7b; grok-1-314b with
+    its depth cut to ``LM_DEPTH``) at full width from a seeded generator:
+    ``ServeEngine`` serves 8 requests of 2048 random tokens, 32 new tokens
+    each.  K3's count is reset just before the first ``generate`` and read
+    just after (one launch a layer, all on the tensor-core route); the
+    kernel prefill is then held against the plain one, layer by layer
+    within K3's bound and at the logits within ``LM_LOGITS_TOL`` and
+    ``LM_LOGITS_SPREAD`` (PyTorch's SDPA prefill read beside it).  For the
+    MoE archs the plain and SDPA prefills take the kernel prefill's experts
+    at every layer; a fourth prefill, plain and routing on its own, gives
+    the routing check (:func:`moe_routing`)."""
+    import dataclasses
     from unittest import mock
 
     import numpy as np
@@ -1899,19 +1938,24 @@ def serve_lm(arch, args, dev):
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_torch
+    from repro_torch.models import moe
     from repro_torch.models import transformer as T
     from repro_torch.serve import Request, ServeEngine
 
     cfg = get_arch(arch).model_cfg
+    if arch in LM_DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=LM_DEPTH[arch],
+                                  name=f"{cfg.name}-depth{LM_DEPTH[arch]}-of-{cfg.n_layers}")
+    mod = moe if isinstance(cfg, moe.MoEConfig) else T
     b, plen, new = LM_SERVE
     t = time.perf_counter()
-    params = T.init(torch.Generator(device=dev).manual_seed(args.seed), cfg)
+    params = mod.init(torch.Generator(device=dev).manual_seed(args.seed), cfg)
     torch.cuda.synchronize(dev)
     init_s = time.perf_counter() - t
     prompts = np.random.default_rng(args.seed).integers(
         0, cfg.vocab, (b, plen)).astype(np.int32)
     reqs = [Request(rid=i, prompt=prompts[i], max_new=new) for i in range(b)]
-    eng = ServeEngine(params, cfg, T, max_seq=plen + new, slots=b)
+    eng = ServeEngine(params, cfg, mod, max_seq=plen + new, slots=b)
 
     flash_attention.launches = 0
     flash_attention.launches_by_route.update(sm90=0, simt=0)
@@ -1936,6 +1980,23 @@ def serve_lm(arch, args, dev):
 
     tok_t = torch.from_numpy(prompts).to(dev)
     kernel_attention, layers = T.attention, []
+    routes = {"kernel": [], "plain": []}  # MoE: each layer's router logits, experts
+
+    def routed(into=None, follow=()):
+        """``moe._route`` taking ``follow``'s experts in turn while there
+        are any (a replay of the kernel prefill's routing), else its own,
+        recorded into ``into``; no effect on a dense model."""
+        real, queue = moe._route, list(follow)
+
+        def route(xt, router, c):
+            if queue:
+                return real(xt, router, c, queue.pop(0).view(*xt.shape[:2], c.top_k))
+            got = real(xt, router, c)
+            if into is not None:
+                into.append(((xt @ router).float().reshape(-1, router.shape[1]),
+                             got[0].reshape(-1, c.top_k)))
+            return got
+        return mock.patch.object(moe, "_route", route)
 
     def checked_attention(q, k, v, **kw):
         # the kernel's output goes on; the plain version on the same inputs
@@ -1944,15 +2005,19 @@ def serve_lm(arch, args, dev):
         layers.append(_k3_close(o, _plain_attention(q, k, v), vbar))
         return o
 
-    with mock.patch.object(T, "attention", checked_attention):
-        kv, logits = T.prefill(params, tok_t, cfg)
+    with mock.patch.object(T, "attention", checked_attention), routed(routes["kernel"]):
+        kv, logits = mod.prefill(params, tok_t, cfg)
     check(len(layers) == cfg.n_layers and all(ok for ok, _, _ in layers),
           f"kernel prefill: a layer's attention is off from its plain version "
           f"(largest share of K3's bound {max((r for _, _, r in layers), default=0)})")
-    with mock.patch.object(T, "attention", _plain_attention):
-        _, plain = T.prefill(params, tok_t, cfg)
-    with mock.patch.object(T, "attention", _sdpa_attention):  # a reading only
-        _, lib = T.prefill(params, tok_t, cfg)
+    # an MoE's plain and SDPA prefills take the kernel prefill's experts, so
+    # the logits differ by the attention's rounding alone
+    kernel_experts = [e for _, e in routes["kernel"]]
+    with mock.patch.object(T, "attention", _plain_attention), routed(follow=kernel_experts):
+        _, plain = mod.prefill(params, tok_t, cfg)
+    with mock.patch.object(T, "attention", _sdpa_attention), \
+            routed(follow=kernel_experts):  # a reading only
+        _, lib = mod.prefill(params, tok_t, cfg)
     check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
     check(logits.argmax(-1).tolist() == toks[:, 0].tolist(),
           "generate's first token is not the prefill's argmax")
@@ -1976,19 +2041,28 @@ def serve_lm(arch, args, dev):
     agree = logits.argmax(-1) == plain.argmax(-1)
     check(bool(agree[decided].all()),
           "kernel and plain prefill disagree on a row with a clear top-1")
+    routing = None
+    if mod is moe:  # the plain prefill routing on its own
+        with mock.patch.object(T, "attention", _plain_attention), routed(routes["plain"]):
+            _, free = mod.prefill(params, tok_t, cfg)
+        routing = moe_routing(cfg, routes, b)
+        routing["own_routing_logits_outside_tol"], \
+            routing["own_routing_logits_max_abs_delta"] = outside(free)
+        del free
+    del routes, kernel_experts
 
-    prefill_ms = wall_ms(lambda: T.prefill(params, tok_t, cfg), dev, 3)
+    prefill_ms = wall_ms(lambda: mod.prefill(params, tok_t, cfg), dev, 3)
     kv = {k: torch.nn.functional.pad(v, (0, 0, 0, new)) for k, v in kv.items()}
     nxt = logits.argmax(-1)
     steps = min(8, new - 1)
 
     def decode_steps():
         for i in range(steps):
-            T.decode_step(params, nxt, kv, plen + i, cfg)
+            mod.decode_step(params, nxt, kv, plen + i, cfg)
 
     decode_ms = wall_ms(decode_steps, dev, 3) / steps
     # the trace must still see K3 after the earlier phases' profiler sessions
-    prefill_prof = device_profile(lambda: T.prefill(params, tok_t, cfg), dev, prefill_ms,
+    prefill_prof = device_profile(lambda: mod.prefill(params, tok_t, cfg), dev, prefill_ms,
                                   match=("flash_fwd",))
     check(prefill_prof["matched"]["flash_fwd"]["launches"] == cfg.n_layers,
           f"the profiled prefill shows {prefill_prof['matched']['flash_fwd']['launches']} "
@@ -1996,7 +2070,9 @@ def serve_lm(arch, args, dev):
     return {
         "model": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
         "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.head_dim,
-        "vocab": cfg.vocab, "params": cfg.n_params(), "init_s": init_s,
+        "vocab": cfg.vocab, "params": cfg.n_params(),
+        "weight_bytes": sum(int(t.numel() * t.element_size()) for t in _leaves(params)),
+        "init_s": init_s,
         "batch": b, "prompt": plen, "new_tokens": new,
         "generate_s": gen_s, "generate_s_second": gen2_s,
         "generate_tokens_per_s": b * new / gen2_s,
@@ -2010,11 +2086,77 @@ def serve_lm(arch, args, dev):
         "sdpa_logits_max_abs_delta_vs_plain": lib_delta, "sdpa_logits_outside_tol": lib_over,
         "logits": int(plain.numel()),
         "rows_with_clear_top1": int(decided.sum()), "top1_agree_rows": int(agree.sum()),
+        **({"routing": routing} if routing else {}),
         "profile_prefill": prefill_prof,
         "profile_decode_step": device_profile(
-            lambda: T.decode_step(params, nxt, kv, plen, cfg), dev, decode_ms),
+            lambda: mod.decode_step(params, nxt, kv, plen, cfg), dev, decode_ms),
         "first_tokens": toks[:2, :8].tolist(),
     }, launches
+
+
+def moe_routing(cfg, routes, b) -> dict:
+    """The MoE prefill's routing, from each layer's router logits and
+    experts recorded in the kernel and the plain prefill
+    (``routes["kernel"]``, ``routes["plain"]``, ``b`` rows): per layer, the
+    (token, expert) choices dropped by capacity, the most tokens one expert
+    took over all groups and the most one expert drew in a group, and the
+    tokens whose expert set differs between the two prefills.  Checked: at
+    each row's first layer where a token's set differs, the plain
+    prefill's gap between its k-th and (k+1)-th logit is a near tie, no
+    more than both logits moved between the prefills at that layer by
+    rounding alone (``moe.route_flips``: twice the largest router-logit
+    difference over the tokens still clean there).  Each such gap is also
+    read in bf16 steps (``moe.router_gap_steps``), as is each token's own
+    first differing layer."""
+    import torch
+
+    from repro_torch.models import moe
+
+    def stacked(run, i):
+        return torch.stack([r[i] for r in routes[run]])
+
+    plain_logits, kernel_experts = stacked("plain", 0), stacked("kernel", 1)
+    flips = moe.route_flips(plain_logits, stacked("plain", 1), stacked("kernel", 0),
+                            kernel_experts, b)
+    n_layers, t, k = kernel_experts.shape
+    g = moe.group_count(t, cfg)
+    cap, ep = moe.capacity(t // g, cfg), cfg.n_experts_padded
+    per_layer = []
+    for layer in range(n_layers):
+        experts = kernel_experts[layer].view(g, t // g, k)
+        kept = moe._slots(experts, cap, ep) < ep * g * cap
+        drew = torch.zeros((g, ep), device=experts.device).scatter_add_(
+            1, experts.reshape(g, -1), torch.ones_like(experts.reshape(g, -1), dtype=torch.float))
+        per_layer.append({
+            "dropped": int((~kept).sum()),
+            "most_tokens_an_expert_took": int(torch.bincount(experts[kept], minlength=ep).max()),
+            "most_an_expert_drew_in_a_group": int(drew.max()),
+            "tokens_routed_otherwise": int(flips["differ"][layer].sum()),
+            "router_logit_drift": float(flips["drift"][layer]),
+        })
+    steps = moe.router_gap_steps(plain_logits, k, cfg.cdtype).view(flips["gap"].shape)
+    firsts = flips["first_flips"]
+    first_steps = [float(steps[layer, row, pos]) for layer, row, pos, _, _ in firsts]
+    differ = flips["differ"]
+    own = differ & ~(differ.cumsum(0) > 1)  # each token's own first differing layer
+    own_steps = steps[own]
+    check(all(ratio <= 1 for *_, ratio in firsts),
+          f"{cfg.name}: a row's first route flip was no near tie: "
+          f"{[f for f in firsts if f[4] > 1][:5]} (layer, row, position, gap, share of "
+          f"twice the layer's drift)")
+    return {
+        "experts": cfg.n_experts, "top_k": k, "groups": g, "tokens_a_group": t // g,
+        "capacity": cap, "per_layer": per_layer,
+        "dropped_all_layers": sum(p["dropped"] for p in per_layer),
+        "tokens_routed_otherwise_all_layers": int(differ.sum()),
+        "rows_clean_at_last_token": int(flips["clean"][:, -1].sum()),
+        "first_flips_by_row": firsts,
+        "first_flips_gap_bf16_steps": first_steps,
+        "first_flips_within_one_step": sum(x <= 1 for x in first_steps),
+        "tokens_first_flip_gap_steps_max": float(own_steps.max()) if own_steps.numel() else None,
+        "tokens_first_flips": int(own_steps.numel()),
+        "tokens_first_flips_within_one_step": int((own_steps <= 1).sum()),
+    }
 
 
 def serve_fm(args, dev):
@@ -2261,6 +2403,16 @@ def gnn_case(arch: str, shape: str, args, dev) -> dict:
     prof = device_profile(forward, dev, ms, match=("segment_reduce_kernel",))
     traced = prof["matched"]["segment_reduce_kernel"]["launches"]
     check(traced == launches, f"{arch} at {shape}: the profiled forward ran K1 {traced} times")
+    # K1's bound in one more forward: each launch's inputs as it gets them
+    real, k1_bounds = gnn.segment_reduce_multi, []
+
+    def bounded(tp, values, monoids):
+        got = real(tp, values, monoids)
+        k1_bounds.append(k1_bound(tp, values, got)[0])
+        return got
+
+    with mock.patch.object(gnn, "segment_reduce_multi", bounded):
+        forward()
     n_params = sum(int(t.numel()) for t in _leaves(params))
     del out, again, plain, diff, mag, x, extra
     return {
@@ -2275,6 +2427,8 @@ def gnn_case(arch: str, shape: str, args, dev) -> dict:
         "k1_launches_per_forward": launches, "bitwise_repeat": True,
         "device_ms": prof["device_ms"], "device_idle_share": prof["device_idle_share"],
         "k1_device_ms": prof["matched"]["segment_reduce_kernel"]["device_ms"],
+        "k1_by_launch_ms": prof["matched"]["segment_reduce_kernel"]["by_launch_ms"],
+        "k1_bound_ms": sum(k1_bounds), "k1_bound_by_launch_ms": k1_bounds,
         "top_device_events": prof["top_device_events"][:5],
     }, both
 
@@ -3254,9 +3408,11 @@ def run(args, dev) -> None:
          "ms": k3_row["ms"], "plain_ms": k3_row["plain_ms"],
          "bound_ms": k3_row["bound_ms"], "bound_by": k3_row["bound_by"],
          "library_ms": k3_row["library_ms"],
-         "d128_form": {key: k3["minitron_prefill"][key] for key in
-                       ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                        "max_abs_err", "route")},
+         **{f"{form}_form": {key: k3[shape][key] for key in
+                             ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                              "max_abs_err", "route")}
+            for form, shape in (("d128", "minitron_prefill"), ("moe_g1", "moe_prefill"),
+                                ("grok_g6", "grok_prefill"))},
          "check": "ok"},
         {"name": "fm_interaction", "route": "cuda",
          "source": "src/repro_torch/csrc/fm_interaction.cu",
@@ -3295,7 +3451,11 @@ def run(args, dev) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--n", type=int, default=100_000)
+    # the k-hop graph: cut from 100,000 to 60,000 when the MoE archs joined
+    # the run (it took 1,154 s of the 1,200 with 100,000: the host EMC build
+    # grows ~n^2 and runs three times on it, 114-141 s each on that run's
+    # host, 67-88 s on earlier ones)
+    ap.add_argument("--n", type=int, default=60_000)
     ap.add_argument("--degree", type=float, default=10.0)
     ap.add_argument("--seed", type=int, default=0)
     # the k-hop and topological streams' batches: cut from 20 to 10 when

@@ -18,6 +18,8 @@ ARCH_MODULES = {
     "minitron-4b": "repro_torch.configs.minitron_4b",
     "qwen3-0.6b": "repro_torch.configs.qwen3_0p6b",
     "minitron-8b": "repro_torch.configs.minitron_8b",
+    "grok-1-314b": "repro_torch.configs.grok1_314b",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2p7b",
     "graphsage-reddit": "repro_torch.configs.graphsage_reddit",
     "meshgraphnet": "repro_torch.configs.meshgraphnet",
     "gcn-cora": "repro_torch.configs.gcn_cora",
@@ -37,7 +39,7 @@ class ShapeCase:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     name: str
-    family: str  # lm-dense | gnn | recsys
+    family: str  # lm-dense | lm-moe | gnn | recsys
     model_cfg: Any
     smoke_cfg: Any
     shapes: Dict[str, ShapeCase]

@@ -110,8 +110,20 @@ def transformer_params_from_arrays(tree: Mapping, cfg, torch_device="cuda"):
     (:func:`~repro_torch.models.transformer.port_dtype`)."""
     from repro_torch.models.transformer import port_dtype
 
-    dev = resolve_device(torch_device)
+    return _lm_params(tree, cfg, resolve_device(torch_device), port_dtype)
 
+
+def moe_params_from_arrays(tree: Mapping, cfg, torch_device="cuda"):
+    """The port's MoE params on ``torch_device`` from the reference's
+    ``moe.init`` tree as numpy arrays (layers stacked ``[L, ...]``, experts
+    ``[L, E, d, f]``), each cast to the dtype the port holds it in
+    (:func:`~repro_torch.models.moe.port_dtype`)."""
+    from repro_torch.models.moe import port_dtype
+
+    return _lm_params(tree, cfg, resolve_device(torch_device), port_dtype)
+
+
+def _lm_params(tree: Mapping, cfg, dev: torch.device, port_dtype):
     def t(name, a):
         return torch.from_numpy(np.array(a, np.float32)).to(dev, port_dtype(name, cfg))
 

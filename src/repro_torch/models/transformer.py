@@ -143,16 +143,22 @@ def _qkv(lp, x, cfg: TransformerConfig, positions, cos, sin):
     return q, k, v.transpose(1, 2).contiguous()
 
 
-def _mix(lp, x, o, cfg: TransformerConfig):
-    """The residual adds around attention output ``o`` [B, H, S, D] and the MLP."""
+def _dense_ffn(lp, xn):
+    """The dense layer's MLP: one SwiGLU on the normalized residual."""
+    return L.swiglu(xn, lp["w_gate"], lp["w_up"], lp["w_down"])
+
+
+def _mix(lp, x, o, cfg: TransformerConfig, ffn=_dense_ffn):
+    """The residual adds around attention output ``o`` [B, H, S, D] and the
+    layer's feed-forward ``ffn(lp, xn)`` (the MoE model passes its own)."""
     b, s = x.shape[:2]
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
     x = x + o @ lp["wo"]
-    xn = L.rmsnorm(x, lp["ln2"])
-    return x + L.swiglu(xn, lp["w_gate"], lp["w_up"], lp["w_down"])
+    return x + ffn(lp, L.rmsnorm(x, lp["ln2"]))
 
 
-def _layers(params, x, cfg: TransformerConfig, attn_backend: Optional[str]):
+def _layers(params, x, cfg: TransformerConfig, attn_backend: Optional[str],
+            ffn=_dense_ffn):
     """Run every layer over the prompt: (hidden states, per-layer k, v)."""
     cos, sin = L.rope_freqs(cfg.head_dim, x.shape[1], cfg.rope_theta, x.device)
     ks, vs = [], []
@@ -161,7 +167,7 @@ def _layers(params, x, cfg: TransformerConfig, attn_backend: Optional[str]):
         o = attention(q, k, v, causal=True, local_window=cfg.local_window,
                       backend=attn_backend, q_chunk=cfg.attn_q_chunk,
                       kv_chunk=cfg.attn_kv_chunk)
-        x = _mix(lp, x, o, cfg)
+        x = _mix(lp, x, o, cfg, ffn)
         ks.append(k)
         vs.append(v)
     return L.rmsnorm(x, params["ln_f"]), ks, vs
@@ -203,6 +209,14 @@ def decode_step(params, token, kv, pos: int, cfg: TransformerConfig):
 
     token: int [B]; kv: {"k","v": [L, B, Hkv, S, D]}, updated in place;
     pos: current length.  Returns (logits [B, V], kv)."""
+    x = _decode_layers(params, token, kv, pos, cfg)
+    return (x[:, 0] @ _unembed(params)).float(), kv
+
+
+def _decode_layers(params, token, kv, pos: int, cfg: TransformerConfig,
+                   ffn=_dense_ffn):
+    """Every layer for one token a row: the final-normed hidden states
+    [B, 1, d]; ``kv`` is written in place at ``pos``."""
     b = token.shape[0]
     x = params["embed"][token.long()].to(cfg.cdtype)[:, None, :]
     smax = kv["k"].shape[3]
@@ -213,6 +227,5 @@ def decode_step(params, token, kv, pos: int, cfg: TransformerConfig):
         kc = cache_update_add(kv["k"][i], k[:, :, 0], pos)
         vc = cache_update_add(kv["v"][i], v[:, :, 0], pos)
         o = decode_ref(q[:, :, 0], kc, vc, pos + 1, window=cfg.local_window)
-        x = _mix(lp, x, o.reshape(b, cfg.n_heads, 1, cfg.head_dim), cfg)
-    x = L.rmsnorm(x, params["ln_f"])
-    return (x[:, 0] @ _unembed(params)).float(), kv
+        x = _mix(lp, x, o.reshape(b, cfg.n_heads, 1, cfg.head_dim), cfg, ffn)
+    return L.rmsnorm(x, params["ln_f"])

@@ -30,8 +30,9 @@ class Request:
 
 class ServeEngine:
     def __init__(self, params, cfg, module, max_seq: int = 256, slots: int = 8):
-        """module: :mod:`repro_torch.models.transformer` (prefill/decode_step).
-        Runs on the device the params lie on."""
+        """module: the model's module, :mod:`repro_torch.models.transformer`
+        or :mod:`repro_torch.models.moe` (its ``prefill`` and
+        ``decode_step``).  Runs on the device the params lie on."""
         self.params = params
         self.cfg = cfg
         self.mod = module

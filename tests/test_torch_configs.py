@@ -1,5 +1,5 @@
-"""The port's architecture registry and the minitron configs against the
-reference, on the CPU.
+"""The port's architecture registry, the LM configs' parameter counts and
+the minitron configs against the reference, on the CPU.
 
 ``ARCHS()`` lists what the port registers; the reference archs still
 missing are named here with the ROADMAP item that ports them.  The
@@ -28,7 +28,7 @@ from repro_torch.models import transformer as T  # noqa: E402
 
 #: reference archs the port does not register yet -> the ROADMAP item
 #: (Queue 1, item 8) that ports them
-MISSING = {"qwen2-moe-a2.7b": "8c", "grok-1-314b": "8c", "paper-gwq": "8e"}
+MISSING = {"paper-gwq": "8e"}
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        "bfloat16": dict(atol=0.06, rtol=0.05)}
 
@@ -60,6 +60,15 @@ def test_registered_spec_matches_reference(name):
         assert dataclasses.asdict(getattr(mine, attr)) == \
             {k: v for k, v in dataclasses.asdict(getattr(ref, attr)).items()
              if k in dataclasses.asdict(getattr(mine, attr))}, (name, attr)
+
+
+@pytest.mark.parametrize("name", ["minitron-4b", "qwen3-0.6b", "minitron-8b",
+                                  "grok-1-314b", "qwen2-moe-a2.7b"])
+def test_lm_param_counts_match_reference(name):
+    mine, ref = registry.get_arch(name).model_cfg, r_registry.get_arch(name).model_cfg
+    assert mine.n_params() == ref.n_params()
+    if hasattr(ref, "n_active_params"):  # the MoE configs
+        assert mine.n_active_params() == ref.n_active_params()
 
 
 @pytest.mark.parametrize("name", ["minitron-4b", "minitron-8b"])

@@ -886,3 +886,52 @@ def test_minitron_prefill_on_card_takes_the_sm90_route(cuda):
     assert flash_attention.launches_by_route["sm90"] == before + cfg.n_layers
     _, plain = T.prefill(params, toks, cfg, attn_backend="flash_torch")
     torch.testing.assert_close(logits, plain, atol=0.06, rtol=0.05)
+
+
+@pytest.mark.parametrize("mod", ["qwen2_moe_a2p7b", "grok1_314b"])
+def test_moe_smoke_prefill_on_card_matches_cpu(cuda, monkeypatch, mod):
+    """The MoE SMOKE prefill on the card: one K3 launch a layer, bitwise
+    across two calls.  On the CPU, the same prefill routing on its own may
+    take other experts only at near ties (``moe.route_flips``), and one
+    that takes the card's experts is within the repo's bf16 tolerance of
+    the card's logits and cache everywhere."""
+    import importlib
+
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.models import moe as M
+
+    cfg = importlib.import_module(f"repro_torch.configs.{mod}").SMOKE
+    params = M.init(torch.Generator(device=cuda).manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 300), device=cuda)
+    rec, follow, route = [], [], M._route
+
+    def recorded(xt, router, c):
+        if follow:
+            return route(xt, router, c, follow.pop(0).view(*xt.shape[:2], c.top_k))
+        out = route(xt, router, c)
+        rec.append(((xt @ router).float().reshape(-1, router.shape[1]).cpu(),
+                    out[0].reshape(-1, c.top_k).cpu()))
+        return out
+
+    monkeypatch.setattr(M, "_route", recorded)
+    before = flash_attention.launches
+    kv, logits = M.prefill(params, toks, cfg)
+    assert flash_attention.launches == before + cfg.n_layers
+    kv2, logits2 = M.prefill(params, toks, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(logits, logits2)
+    assert all(torch.equal(kv[k], kv2[k]) for k in kv)
+    card = rec[:cfg.n_layers]
+    del rec[:]
+    host = {k: ([{n: t.cpu() for n, t in lp.items()} for lp in v] if k == "layers"
+                else v.cpu()) for k, v in params.items()}
+    M.prefill(host, toks.cpu(), cfg)
+    flips = M.route_flips(*(torch.stack([r[i] for r in rec]) for i in (0, 1)),
+                          *(torch.stack([r[i] for r in card]) for i in (0, 1)), 2)
+    assert all(ratio <= 1 for *_, ratio in flips["first_flips"]), flips["first_flips"]
+    follow.extend(experts for _, experts in card)
+    kv_h, logits_h = M.prefill(host, toks.cpu(), cfg)
+    assert not follow
+    torch.testing.assert_close(logits.cpu(), logits_h, atol=0.06, rtol=0.05)
+    for k in kv:
+        torch.testing.assert_close(kv[k].cpu(), kv_h[k], atol=0.06, rtol=0.05)

@@ -56,11 +56,14 @@ def test_no_source_imports_jax_or_reference():
                                     "repro_torch.configs.graphsage_reddit",
                                     "repro_torch.configs.meshgraphnet",
                                     "repro_torch.configs.minitron_4b",
-                                    "repro_torch.configs.minitron_8b"])
+                                    "repro_torch.configs.minitron_8b",
+                                    "repro_torch.models.moe",
+                                    "repro_torch.configs.qwen2_moe_a2p7b",
+                                    "repro_torch.configs.grok1_314b"])
 def test_serving_tier_imports_stand_alone(module):
     """The serving tier (service, WAL, checkpoints, replicas, the cluster,
     health), the audit, EXPLAIN and ANALYZE modules, the sharded runtime,
-    the GNN family and the configs load neither JAX nor the reference
+    the GNN family, the MoE model and the configs load neither JAX nor the reference
     package on their own (nor Triton)."""
     probe = (f"import sys, {module}\n"
              "print(sorted(m for m in sys.modules if m.split('.')[0] in "
