@@ -7,7 +7,10 @@
                              # qwen3-0.6b, minitron-8b, qwen2-moe-a2.7b
                              # and grok-1-314b (depth 2) serving; the
                              # Criteo-shaped FM; GCN, GAT, GraphSAGE and
-                             # MeshGraphNet at full width; a two-follower
+                             # MeshGraphNet at full width; training
+                             # qwen3-0.6b, the FM and qwen2-moe-a2.7b
+                             # (depth 2) through build_trainer, with K3's
+                             # and K4's backward kernels; a two-follower
                              # cluster on ER n=30k; the sharded runtime on
                              # ER n=30k at world sizes 1 (NCCL) and 2
                              # (gloo), served by the window service
@@ -16,7 +19,7 @@ Phases, one JSON object per line:
 
 1. ``env``     — the card (``nvidia-smi`` name and power limit), torch, CUDA.
 2. ``build``   — compiles every kernel of ``src/repro_torch/csrc`` with nvcc
-                 for sm_90a (six libraries, one nvcc per source, all started
+                 for sm_90a (seven libraries, one nvcc per source, all started
                  together); registers and spills from each ptxas log (none
                  allowed in K1's, K2's or the scan's).
 3. ``index``   — the graph, the host EMC DBIndex build and the device plan,
@@ -167,6 +170,38 @@ Phases, one JSON object per line:
     one forward profiled, K1's bound summed over one more forward's
     launches; TF32 off.  With it the k-hop ``khop_aggregate``
     result of 7c.
+15b'. ``kernel:flash_attention_bwd`` — K3's backward kernel
+    (``csrc/flash_attention_bwd.cu``: row statistics, dK/dV, dQ) against
+    autograd through ``flash_torch`` at qwen3-0.6b's and qwen2-moe-a2.7b's
+    training shapes (one microbatch: (4, 16, 8, 4096, 64) and (4, 16, 16,
+    2048, 128), bf16: a relative L2 error of at most 2e-2 for each of dq,
+    dk, dv) and at (2, 4, 2, 1000, 128) float32 (each element within 1e-4
+    (|plain| + rms(plain))); bitwise across two launches; timed beside the
+    plain backward, SDPA's backward through ``torch.autograd`` and the
+    bound (five causal products at the bf16 or float32 peak).
+    ``kernel:fm_interaction_bwd`` — K4's backward at B = 65,536, F 39, K 10,
+    within 1e-5 of |g| (sum_f |e| + |e|), bitwise across launches; timed
+    beside the plain version and its bytes bound.
+    ``train`` — the training path through ``build_trainer(..., smoke=False)``
+    (``TRAIN_LM``, ``TRAIN_FM``, ``TRAIN_MOE``), each model freed before the
+    next: qwen3-0.6b at full width and depth (remat) at S = 4096, batch 8 as
+    2 microbatches of 4 (cut from train_4k's 256), AdamW with bf16 moments
+    and the reference's cosine schedule: its first step by hand on the
+    kernel route and on the plain route (``attn_backend="flash_torch"``)
+    from the same params and batches (loss within 1e-3, gnorm within 2e-2,
+    every layer's wq, wk, wv gradient nonzero and within a relative L2 of
+    2e-2); 6 steps with the counts reset just before and read just after
+    (112 K3 forward launches and 56 backward calls a step: two forwards a
+    layer and microbatch under remat), a checkpoint at step 3 in a
+    temporary directory, a fresh trainer resumed from it whose losses equal
+    the uninterrupted run's at rtol 1e-6; step ms, tokens a second, peak
+    memory, checkpoint save and restore s, one more step profiled (device
+    time by kernel, idle share).  The FM at full width, B = 65,536, 5 steps
+    (one K4 forward and one backward launch a step; the first loss within
+    1e-5 of the plain interaction's, the emb gradient within 1e-5 relative
+    L2).  qwen2-moe-a2.7b at full width, depth 2 of 24, B x S = 4 x 2048, 2
+    steps: finite losses and gnorms, the first loss within 1e-3 of the
+    plain route replaying the kernel route's experts.
 15b. ``cluster`` — the cluster tier on a graph and a generator of its own
     (ER n = 30,000, degree 10, ``CLUSTER_N``: cut from 100,000 by the
     run's time, four host EMC builds): ``ReplicaSet(n_replicas=2,
@@ -2492,6 +2527,483 @@ def serve_gnn(args, dev, khop) -> tuple:
 
 
 # ---------------------------------------------------------------------- #
+# train: the training path on the card (build_trainer(..., smoke=False)),
+# after serve_gnn and before the cluster tier, the card's memory freed on
+# either side.  qwen3-0.6b at full width and depth (28 layers, d 1024,
+# vocab 151,936, remat) at train_4k's length, S = 4096, its batch cut from
+# 256 to 8 (2 microbatches of 4) by the run's time; the FM at full width
+# (80.31 M rows) at train_batch's B = 65,536; qwen2-moe-a2.7b at full width
+# with its depth cut to 2 of 24 layers (full depth holds 28.6 GB of bf16
+# weights, and float32 masters, gradients and AdamW moments would not fit
+# on one card), B x S = 4 x 2048
+TRAIN_LM = dict(arch="qwen3-0.6b", batch=4, microbatch=2, seq=4096, steps=6)
+TRAIN_FM = dict(batch=65536, steps=5)
+TRAIN_MOE = dict(arch="qwen2-moe-a2.7b", depth=2, batch=4, seq=2048, steps=2)
+# (name, B, Hq, Hkv, S, D, dtype): K3's backward at qwen3's and qwen2-moe's
+# training shapes (one microbatch) and at one float32 shape
+K3_BWD_SHAPES = (("qwen3_train", 4, 16, 8, 4096, 64, "bfloat16"),
+                 ("moe_train", 4, 16, 16, 2048, 128, "bfloat16"),
+                 ("float32", 2, 4, 2, 1000, 128, "float32"))
+K4_BWD_SHAPE = (65536, 39, 10)  # train_batch's B, the FM's F and K
+# gates: float32 each element within 1e-4 (|plain| + rms(plain)); bf16 a
+# relative L2 error of at most 2e-2 a tensor (the kernel's p is exact where
+# the plain version's forward rounds o to bf16 before autograd sees it);
+# the step's loss and gnorm on the kernel route against the plain route
+# (flash_torch under autograd) on the same params and batch
+TRAIN_BF16_REL_L2 = 2e-2
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_GNORM_RTOL = 2e-2
+TRAIN_RESUME_RTOL = 1e-6
+TRAIN_FM_LOSS_RTOL = 1e-5
+
+
+def _rel_l2(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
+
+
+def _f32_close(got, want):
+    """(ok, largest share of the gate): each element within 1e-4 (|plain|
+    + rms(plain))."""
+    rms = want.float().square().mean().sqrt()
+    share = (got.float() - want.float()).abs() / (1e-4 * (want.float().abs() + rms))
+    return bool((share <= 1).all()), float(share.max())
+
+
+def kernel_flash_attention_bwd(dev, reps, seed):
+    """K3's backward kernel against autograd through ``flash_torch`` on the
+    same q, k, v, o and dO (unit normals) at ``K3_BWD_SHAPES``: bf16 a
+    relative L2 error of at most ``TRAIN_BF16_REL_L2`` for each of dq, dk,
+    dv, float32 within 1e-4 (|plain| + rms(plain)); bitwise across two
+    launches; timed beside the plain backward, SDPA's backward through
+    ``torch.autograd`` (its forward run once, outside the timing) and the
+    bound: five causal products (q k^T, dO v^T, p^T dO, ds^T q, ds k) at
+    the bf16 or float32 peak against the bytes of q, k, v, o, dO read and
+    dq, dk, dv written."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 30)
+    per_shape, worst = {}, 0.0
+    for name, b, hq, hkv, s, d, dt in K3_BWD_SHAPES:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
+                   for h in (hq, hkv, hkv))
+        do = torch.randn((b, hq, s, d), generator=gen, device=dev).to(dtype)
+        o = fa.flash_attention(q, k, v)
+        got = fa.flash_attention_bwd(q, k, v, o, do)
+        again = fa.flash_attention_bwd(q, k, v, o, do)
+        plain = fa.flash_attention_bwd_plain(q, k, v, do)
+        torch.cuda.synchronize(dev)
+        errs = {}
+        for x, y, w, t in zip(got, again, plain, ("dq", "dk", "dv")):
+            check(torch.equal(x, y), f"K3 bwd {name}: two launches differ in {t}")
+            check(bool(torch.isfinite(x).all()) and float(x.float().abs().sum()) > 0,
+                  f"K3 bwd {name}: {t} non-finite or zero")
+            if dtype == torch.bfloat16:
+                err = _rel_l2(x, w)
+                check(err <= TRAIN_BF16_REL_L2, f"K3 bwd {name}: {t} relative L2 {err}")
+            else:
+                ok, err = _f32_close(x, w)
+                check(ok, f"K3 bwd {name}: {t} off its plain version ({err} of the gate)")
+            errs[t] = err
+            worst = max(worst, float((x.float() - w.float()).abs().max()))
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+
+        def lib():
+            return torch.autograd.grad(sdpa, (qg, kg, vg), do, retain_graph=True)
+        lib_err = max(_rel_l2(x, w) for x, w in zip(lib(), plain))
+        flops = 5 * b * hq * d * s * (s + 1)
+        b_ms, by = bound_ms(nbytes(q, k, v, o, do, *got), flops,
+                            BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S)
+        ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, do), dev, reps)
+        lib_ms = time_ms(lib, dev, reps)
+        per_shape[name] = {
+            "b": b, "hq": hq, "hkv": hkv, "s": s, "d": d, "dtype": dt,
+            "errors": errs, "max_abs_err": float(max((x.float() - w.float()).abs().max()
+                                                     for x, w in zip(got, plain))),
+            "library_rel_l2_vs_plain": lib_err,
+            "ms": ms, "plain_ms": time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, do),
+                                          dev, 3),
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": by,
+            "tflops_of_five_products": flops / ms / 1e9,
+            "ms_over_library": ms / lib_ms, "ms_over_bound": ms / b_ms,
+        }
+        del q, k, v, o, do, got, again, plain, qg, kg, vg, sdpa
+        torch.cuda.empty_cache()
+    return per_shape, worst, build.ptxas_report("flash_attention_bwd")
+
+
+def kernel_fm_interaction_bwd(dev, reps, seed):
+    """K4's backward kernel against autograd through the oracle at
+    ``K4_BWD_SHAPE``: each element within 1e-5 of |g| (sum_f |e| + |e|)
+    (float32 sums in another order); bitwise across two launches; timed
+    beside the plain version and the bound (bytes: emb and g read once,
+    the gradient written once)."""
+    import torch
+
+    from repro_torch.kernels.fm_interaction import fm_interaction as fm
+
+    b, f, k = K4_BWD_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+    emb = torch.randn((b, f, k), generator=gen, device=dev)
+    g = torch.randn((b,), generator=gen, device=dev)
+    got, again = fm.fm_interaction_bwd(emb, g), fm.fm_interaction_bwd(emb, g)
+    plain = fm.fm_interaction_bwd_plain(emb, g)
+    torch.cuda.synchronize(dev)
+    check(torch.equal(got, again), "K4 bwd: two launches differ")
+    mass = g.abs()[:, None, None] * (emb.abs().sum(1, keepdim=True) + emb.abs())
+    diff = (got - plain).abs()
+    check(bool((diff <= 1e-5 * mass + 1e-30).all()), f"K4 bwd: off by {float(diff.max())}")
+    b_ms, by = bound_ms(nbytes(emb, g, got), 2 * emb.numel())
+    return {"b": b, "f": f, "k": k, "max_abs_err": float(diff.max()),
+            "ms": time_ms(lambda: fm.fm_interaction_bwd(emb, g), dev, reps),
+            "plain_ms": time_ms(lambda: fm.fm_interaction_bwd_plain(emb, g), dev, reps),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": by}
+
+
+def _train_counts():
+    """The training kernels' counters, by name."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.fm_interaction import fm_interaction as fm
+
+    return {"flash_attention": fa.flash_attention, "flash_attention_bwd": fa.flash_attention_bwd,
+            "fm_interaction": fm.fm_interaction, "fm_interaction_bwd": fm.fm_interaction_bwd}
+
+
+def _reset_counts() -> None:
+    for fn in _train_counts().values():
+        fn.launches = 0
+
+
+def _read_counts() -> dict:
+    return {name: fn.launches for name, fn in _train_counts().items()}
+
+
+def _first_step(loss_fn, params, stream, microbatch, dev):
+    """(loss, gnorm, grads) of a trainer's first step by hand: the mean
+    over ``microbatch`` batches of ``stream`` and the global norm of the
+    averaged float32 gradients (what AdamW reports before clipping)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.optim.optimizers import _global_norm
+    from repro_torch.train.trainer import value_and_grad
+    from repro_torch.tree import leaves, unflatten
+
+    loss_sum, acc = 0.0, None
+    for _ in range(microbatch):
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in stream.next().items()}
+        loss, grads = value_and_grad(loss_fn, params, batch)
+        loss_sum += float(loss)
+        g = leaves(grads)
+        acc = g if acc is None else [a + x for a, x in zip(acc, g)]
+        del grads, g
+    grads = unflatten(params, [a / microbatch for a in acc])
+    return loss_sum / microbatch, float(_global_norm(grads)), grads
+
+
+def _median_step_ms(history):
+    import statistics
+
+    return statistics.median(h["dt"] for h in history[1:]) * 1e3
+
+
+def train_lm(args, dev) -> dict:
+    """qwen3-0.6b at full width and depth: its first step by hand on the
+    kernel route and on the plain route (``attn_backend="flash_torch"``, the
+    same params and batches): loss within ``TRAIN_LOSS_RTOL``, gnorm within
+    ``TRAIN_GNORM_RTOL``, and every layer's wq, wk and wv gradient nonzero
+    and within ``TRAIN_BF16_REL_L2`` (relative L2); then ``Trainer.run``
+    for ``TRAIN_LM["steps"]`` steps (K3's counts reset just before, read
+    just after: two forward launches a layer and microbatch, the step's
+    and the remat recompute's, and one backward call), its first loss and
+    gnorm those of the step by hand (rtol 1e-6), a checkpoint at the
+    midpoint into a temporary directory; a fresh trainer resumes from it
+    and its losses equal the uninterrupted run's at ``TRAIN_RESUME_RTOL``;
+    one more step under ``torch.profiler``."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models import transformer as T
+
+    p = TRAIN_LM
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        def make():
+            tr = build_trainer(p["arch"], smoke=False, batch=p["batch"], seq=p["seq"],
+                               steps=p["steps"], microbatch=p["microbatch"], ckpt_dir=ckpt,
+                               torch_device=dev)
+            tr.cfg.checkpoint_every = p["steps"] // 2  # the midpoint's checkpoint
+            return tr
+
+        t = time.perf_counter()
+        tr = make()
+        torch.cuda.synchronize(dev)
+        init_s = time.perf_counter() - t
+        cfg = get_cfg(p["arch"])
+
+        def stream():
+            return TokenStream(vocab=cfg.vocab, batch=p["batch"], seq=p["seq"])
+
+        _reset_counts()
+        k_loss, k_gnorm, k_grads = _first_step(lambda q, b: T.loss_fn(q, b, cfg), tr.params,
+                                               stream(), p["microbatch"], dev)
+        by_hand_counts = _read_counts()
+        check(by_hand_counts["flash_attention_bwd"] == cfg.n_layers * p["microbatch"],
+              f"the step by hand made {by_hand_counts['flash_attention_bwd']} K3 backward calls")
+        kernel_qkv = [{w: lp[w] for w in ("wq", "wk", "wv")} for lp in k_grads["layers"]]
+        del k_grads
+        p_loss, p_gnorm, p_grads = _first_step(
+            lambda q, b: T.loss_fn(q, b, cfg, attn_backend="flash_torch"), tr.params,
+            stream(), p["microbatch"], dev)
+        qkv_errs = []
+        for layer, (kg, pg) in enumerate(zip(kernel_qkv, p_grads["layers"])):
+            for w in ("wq", "wk", "wv"):
+                check(float(kg[w].abs().sum()) > 0, f"layer {layer}: no gradient in {w}")
+                qkv_errs.append(_rel_l2(kg[w], pg[w]))
+        del p_grads, kernel_qkv
+        check(max(qkv_errs) <= TRAIN_BF16_REL_L2,
+              f"wq/wk/wv gradients off the plain route's: relative L2 {max(qkv_errs)}")
+        check(abs(k_loss - p_loss) <= TRAIN_LOSS_RTOL * abs(p_loss),
+              f"step-1 loss {k_loss} against the plain route's {p_loss}")
+        check(abs(k_gnorm - p_gnorm) <= TRAIN_GNORM_RTOL * abs(p_gnorm),
+              f"step-1 gnorm {k_gnorm} against the plain route's {p_gnorm}")
+        torch.cuda.empty_cache()
+
+        saves = []
+        real_save = tr.ckpt.save
+
+        def timed_save(*a, **kw):
+            t = time.perf_counter()
+            out = real_save(*a, **kw)
+            saves.append(time.perf_counter() - t)
+            return out
+
+        tr.ckpt.save = timed_save  # this trainer's manager only
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_counts()
+        tr.run(p["steps"] // 2)  # one run: the second call carries on its trajectory
+        tr.ckpt = None  # no checkpoint after the midpoint's
+        tr.run(p["steps"] - p["steps"] // 2)
+        counts = _read_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        steps = p["steps"]
+        want_fwd = steps * cfg.n_layers * p["microbatch"] * (2 if cfg.remat else 1)
+        want_bwd = steps * cfg.n_layers * p["microbatch"]
+        check(counts["flash_attention"] == want_fwd and counts["flash_attention_bwd"] == want_bwd,
+              f"K3 launches in {steps} steps: {counts}, expected {want_fwd} forward and "
+              f"{want_bwd} backward")
+        losses = [h["loss"] for h in tr.history]
+        check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+        first = tr.history[0]
+        check(abs(first["loss"] - k_loss) <= 1e-6 * abs(k_loss)
+              and abs(first["gnorm"] - k_gnorm) <= 1e-5 * k_gnorm,
+              f"the trainer's first step ({first}) is not the step by hand ({k_loss}, {k_gnorm})")
+        check(len(saves) == 1, f"{len(saves)} checkpoints written, not 1")
+
+        tr2 = make()
+        t = time.perf_counter()
+        resumed_at = tr2.resume()
+        torch.cuda.synchronize(dev)
+        restore_s = time.perf_counter() - t
+        tr2.run(steps - resumed_at)
+        resumed = [h["loss"] for h in tr2.history]
+        check(resumed_at == steps // 2 and len(resumed) == steps - resumed_at,
+              f"resumed at {resumed_at} and ran {len(resumed)} steps")
+        check(all(abs(a - b) <= TRAIN_RESUME_RTOL * abs(b)
+                  for a, b in zip(resumed, losses[resumed_at:])),
+              f"resumed losses {resumed} against the uninterrupted {losses[resumed_at:]}")
+        del tr2
+        torch.cuda.empty_cache()
+
+        step_ms = _median_step_ms(tr.history)
+        prof = device_profile(lambda: tr.run(1), dev, step_ms,
+                              match=("flash_fwd", "flash_bwd", "nvjet", "gemm"))
+        tokens = p["batch"] * p["microbatch"] * p["seq"]
+        return {
+            "model": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "vocab": cfg.vocab, "params": cfg.n_params(), "remat": cfg.remat,
+            "seq": p["seq"], "batch": p["batch"] * p["microbatch"],
+            "microbatch": p["microbatch"], "steps": steps, "init_s": init_s,
+            "reduced": ["batch 256 -> 8 (2 microbatches of 4): the run's time limit"],
+            "losses": losses, "gnorms": [h["gnorm"] for h in tr.history],
+            "step_ms": [h["dt"] * 1e3 for h in tr.history], "step_ms_median": step_ms,
+            "tokens_per_s": tokens / step_ms * 1e3,
+            "peak_memory_bytes": peak,
+            "k3_launches_per_step": {"forward": counts["flash_attention"] / steps,
+                                     "backward": counts["flash_attention_bwd"] / steps},
+            "checkpoint_save_s": saves[0], "checkpoint_restore_s": restore_s,
+            "resumed_at": resumed_at, "resumed_losses": resumed,
+            "step1_vs_plain": {"loss": k_loss, "plain_loss": p_loss, "gnorm": k_gnorm,
+                               "plain_gnorm": p_gnorm,
+                               "wq_wk_wv_rel_l2_max": max(qkv_errs)},
+            "profile_step": prof,
+        }, counts
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def get_cfg(arch):
+    from repro_torch.configs.registry import get_arch
+
+    return get_arch(arch).model_cfg
+
+
+def train_fm(args, dev) -> dict:
+    """The FM at full width: ``Trainer.run`` for ``TRAIN_FM["steps"]``
+    steps at B = 65,536 (K4's counts reset just before, read just after:
+    one forward and one backward launch a step); the first step's loss
+    within ``TRAIN_FM_LOSS_RTOL`` of the same loss with the plain
+    interaction, on the initial params and batch; the emb gradient of that
+    batch nonzero and within 1e-5 relative L2 of the plain route's."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import RecsysStream
+    from repro_torch.kernels.fm_interaction.fm_interaction import fm_interaction_plain
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models import recsys as R
+    from repro_torch.train.trainer import value_and_grad
+
+    p = TRAIN_FM
+    tr = build_trainer("fm", smoke=False, batch=p["batch"], steps=p["steps"], torch_device=dev)
+    cfg = get_cfg("fm")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             RecsysStream(n_fields=cfg.n_fields, batch=p["batch"]).next().items()}
+    _, k_grads = value_and_grad(lambda q, b: R.loss_fn(q, b, cfg), tr.params, batch)
+    k_emb = k_grads["emb"]
+    del k_grads
+    with mock.patch.object(R, "fm_second_order",
+                           lambda e: fm_interaction_plain(e.float().contiguous())):
+        p_loss, p_grads = value_and_grad(lambda q, b: R.loss_fn(q, b, cfg), tr.params, batch)
+    emb_err = _rel_l2(k_emb, p_grads["emb"])
+    check(float(k_emb.abs().sum()) > 0 and emb_err <= 1e-5,
+          f"FM emb gradient: relative L2 {emb_err} against the plain interaction's")
+    del k_emb, p_grads
+    torch.cuda.empty_cache()
+    _reset_counts()
+    tr.run(p["steps"])
+    counts = _read_counts()
+    check(counts["fm_interaction"] == p["steps"] and counts["fm_interaction_bwd"] == p["steps"],
+          f"K4 launches in {p['steps']} steps: {counts}")
+    losses = [h["loss"] for h in tr.history]
+    check(bool(np.isfinite(losses).all()), f"FM losses {losses}")
+    check(abs(losses[0] - float(p_loss)) <= TRAIN_FM_LOSS_RTOL * abs(float(p_loss)),
+          f"FM step-1 loss {losses[0]} against the plain interaction's {float(p_loss)}")
+    step_ms = _median_step_ms(tr.history)
+    return {"model": cfg.name, "rows": cfg.total_rows, "batch": p["batch"],
+            "steps": p["steps"], "losses": losses, "plain_step1_loss": float(p_loss),
+            "emb_grad_rel_l2_vs_plain": emb_err,
+            "step_ms": [h["dt"] * 1e3 for h in tr.history], "step_ms_median": step_ms,
+            "examples_per_s": p["batch"] / step_ms * 1e3,
+            "k4_launches_per_step": {"forward": counts["fm_interaction"] / p["steps"],
+                                     "backward": counts["fm_interaction_bwd"] / p["steps"]}
+            }, counts
+
+
+def train_moe(args, dev) -> dict:
+    """qwen2-moe-a2.7b at full width, depth cut to ``TRAIN_MOE["depth"]``:
+    the first batch's loss on the kernel route (its experts recorded at
+    every layer) and on the plain route replaying those experts
+    (``moe._route(experts=)``, so no near-tie route flip decides it), then
+    ``Trainer.run`` for ``TRAIN_MOE["steps"]`` steps (K3's counts reset
+    just before, read just after): finite losses and gnorms, the first
+    step's loss within ``TRAIN_LOSS_RTOL`` of the plain route's."""
+    import dataclasses
+    import math
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models import moe
+
+    p = TRAIN_MOE
+    full = get_cfg(p["arch"])
+    cfg = dataclasses.replace(full, n_layers=p["depth"],
+                              name=f"{full.name}-depth{p['depth']}-of-{full.n_layers}")
+    tr = build_trainer(p["arch"], cfg=cfg, batch=p["batch"], seq=p["seq"], steps=p["steps"],
+                       torch_device=dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             TokenStream(vocab=cfg.vocab, batch=p["batch"], seq=p["seq"]).next().items()}
+    real, recorded = moe._route, []
+
+    def record(xt, router, c, experts=None):
+        out = real(xt, router, c, experts)
+        recorded.append(out[0])
+        return out
+
+    with torch.no_grad(), mock.patch.object(moe, "_route", record):
+        k_loss = float(moe.loss_fn(tr.params, batch, cfg))
+    check(len(recorded) == cfg.n_layers, f"{len(recorded)} routings for {cfg.n_layers} layers")
+    queue = list(recorded)
+
+    def replay(xt, router, c, experts=None):
+        return real(xt, router, c, queue.pop(0))
+
+    with torch.no_grad(), mock.patch.object(moe, "_route", replay):
+        p_loss = float(moe.loss_fn(tr.params, batch, cfg, attn_backend="flash_torch"))
+    check(not queue, "the plain route did not take every recorded routing")
+    del recorded
+    _reset_counts()
+    tr.run(p["steps"])
+    counts = _read_counts()
+    steps = p["steps"]
+    want_fwd = steps * cfg.n_layers * (2 if cfg.remat else 1)
+    check(counts["flash_attention"] == want_fwd
+          and counts["flash_attention_bwd"] == steps * cfg.n_layers,
+          f"K3 launches in {steps} MoE steps: {counts}")
+    losses = [h["loss"] for h in tr.history]
+    gnorms = [h["gnorm"] for h in tr.history]
+    check(all(math.isfinite(x) for x in losses + gnorms), f"MoE losses {losses}, gnorms {gnorms}")
+    check(abs(losses[0] - p_loss) <= TRAIN_LOSS_RTOL * abs(p_loss),
+          f"MoE step-1 loss {losses[0]} against the plain route's {p_loss}")
+    step_ms = _median_step_ms(tr.history) if steps > 1 else tr.history[0]["dt"] * 1e3
+    return {"model": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "params": cfg.n_params(), "batch": p["batch"], "seq": p["seq"], "steps": steps,
+            "reduced": [f"depth 24 -> {p['depth']}: float32 masters, gradients and moments "
+                        "of all 24 layers would not fit on one card"],
+            "losses": losses, "gnorms": gnorms, "kernel_loss_no_grad": k_loss,
+            "plain_loss_replayed_experts": p_loss,
+            "step_ms": [h["dt"] * 1e3 for h in tr.history], "step_ms_median": step_ms,
+            "tokens_per_s": p["batch"] * p["seq"] / step_ms * 1e3,
+            "k3_launches_per_step": {"forward": counts["flash_attention"] / steps,
+                                     "backward": counts["flash_attention_bwd"] / steps}
+            }, counts
+
+
+def train_phase(args, dev) -> tuple:
+    """The training path: qwen3-0.6b, the FM, qwen2-moe-a2.7b at depth 2,
+    each freed before the next.  Returns the phase's line and the main
+    path's launches by kernel (the three runs' counts added)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out, counts = {}, {name: 0 for name in _train_counts()}
+    for name, fn in (("qwen3", train_lm), ("fm", train_fm), ("moe", train_moe)):
+        out[name], c = fn(args, dev)
+        for k, n in c.items():
+            counts[k] += n
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t
+    return out, counts
+
+
+# ---------------------------------------------------------------------- #
 # The cluster tier: one writer, two followers tailing its segmented WAL,
 # reads placed by the router.  ER n = 30,000, degree 10, KHop(2), cut from
 # the k-hop phase's 100,000 by the run's time: the phase makes four host
@@ -3354,6 +3866,22 @@ def run(args, dev) -> None:
     gnn_out, gnn_k1 = serve_gnn(args, dev, khop)
     emit({"phase": "serve_gnn", **gnn_out})
     launches["segment_sum"] += gnn_k1
+    # the training path: its backward kernels checked first, then the
+    # trainers, the card's memory freed on either side
+    torch.cuda.empty_cache()
+    k3b, k3b_err, k3b_ptxas = kernel_flash_attention_bwd(dev, args.reps, args.seed)
+    emit({"phase": "kernel:flash_attention_bwd", "check": "ok", "max_abs_err": k3b_err,
+          "ptxas": k3b_ptxas, "per_shape": k3b})
+    k4b = kernel_fm_interaction_bwd(dev, args.reps, args.seed)
+    emit({"phase": "kernel:fm_interaction_bwd", "check": "ok", **k4b})
+    trained, train_counts = train_phase(args, dev)
+    emit({"phase": "train", **trained})
+    torch.cuda.empty_cache()
+    launches["flash_attention"] += train_counts["flash_attention"]
+    launches["fm_interaction"] += train_counts["fm_interaction"]
+    for name in ("flash_attention_bwd", "fm_interaction_bwd"):
+        launches[name] = train_counts[name]
+        check(launches[name] > 0, f"the training path launched no {name}")
     # after the timed serving paths, before K2's 2 M-vertex graph: a graph
     # and a generator of its own
     cluster = cluster_phase(args, dev)
@@ -3422,6 +3950,29 @@ def run(args, dev) -> None:
          "bound_ms": k4_row["bound_ms"], "bound_by": k4_row["bound_by"],
          "library_ms": None,
          "library": "none: no single PyTorch call computes the FM term",
+         "check": "ok"},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+         "replaces": ("src/repro/kernels/flash_attention/flash_attention.py:76 (the TPU "
+                      "kernel has no backward; the reference trains through flash_jnp "
+                      "autodiff, src/repro/models/attention.py:43)"),
+         "launches": launches["flash_attention_bwd"], "max_abs_err": k3b_err,
+         **{key: k3b["qwen3_train"][key] for key in
+            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         **{f"{form}_form": {key: k3b[form][key] for key in
+                             ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                              "max_abs_err", "errors")}
+            for form in ("moe_train", "float32")},
+         "check": "ok"},
+        {"name": "fm_interaction_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/fm_interaction.cu",
+         "replaces": ("src/repro/kernels/fm_interaction/fm_interaction.py:31 (the TPU "
+                      "kernel has no backward; the reference trains through the jnp "
+                      "interaction)"),
+         "launches": launches["fm_interaction_bwd"], "max_abs_err": k4b["max_abs_err"],
+         **{key: k4b[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None,
+         "library": "none: no single PyTorch call computes the FM term's gradient",
          "check": "ok"},
         {"name": "inherit_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/inherit_scan.cu",

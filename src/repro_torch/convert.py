@@ -1,10 +1,17 @@
-"""Carry index, plan and model state across from the reference, as numpy arrays.
+"""Carry index, plan, model and training state across from the reference, as numpy arrays.
 
 The reference package's ``DBIndex`` and ``IIndex`` and their device plans
 (``DBIndexPlan``, ``IIndexPlan``) flatten to plain arrays (``np.asarray``
 of each field); these functions rebuild the port's objects from them, so
 the two packages can be fed the *same* index and plan and their query
 paths compared in isolation from the host builders.
+
+Training state goes both ways: the reference's stacked ``[L, ...]`` float32
+params become the port's per-layer float32 masters
+(:func:`lm_train_params_from_arrays`, no serving cast), port params,
+gradients and moments go back to the stacked layout
+(:func:`lm_tree_to_arrays`), and ``AdamWState`` and the data cursors cross
+in both directions.
 """
 
 from __future__ import annotations
@@ -168,3 +175,84 @@ def gnn_params_from_arrays(tree: Mapping, cfg, torch_device="cuda"):
     if "proc" in tree:
         out["proc"] = [conv(tree["proc"], i) for i in range(cfg.n_layers)]
     return out
+
+
+# ----------------------------- training -------------------------------- #
+def _tensor(a, dev: torch.device) -> torch.Tensor:
+    """A numpy array (bf16 ones as ``ml_dtypes`` arrays, read through their
+    uint16 bits) as a tensor of the same dtype on ``dev``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a, order="C").view(np.int16)).view(
+            torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bf16 becomes float32 (exactly)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _unstack(tree, n_layers: int, fn):
+    out = {k: fn(v) for k, v in tree.items() if k != "layers"}
+    if "layers" in tree:
+        out["layers"] = [{k: fn(np.asarray(a)[i]) for k, a in tree["layers"].items()}
+                         for i in range(n_layers)]
+    return out
+
+
+def lm_train_params_from_arrays(tree: Mapping, cfg, torch_device="cuda"):
+    """The port's float32 master params (the layers a per-layer list) on
+    ``torch_device`` from the reference's ``init`` tree of a dense or MoE
+    LM as numpy arrays (layers stacked ``[L, ...]``), each leaf kept in its
+    own dtype: no serving cast."""
+    return tree_from_arrays(tree, cfg.n_layers, torch_device)
+
+
+def lm_tree_to_arrays(tree):
+    """A port LM tree (params, gradients or AdamW moments: the layers a
+    per-layer list) in the reference's layout as numpy arrays: every layer
+    leaf stacked ``[L, ...]``; bf16 leaves as float32."""
+    out = {k: _array(v) for k, v in tree.items() if k != "layers"}
+    if "layers" in tree:
+        layers = tree["layers"]
+        out["layers"] = {k: np.stack([_array(lp[k]) for lp in layers])
+                         for k in layers[0]} if layers else {}
+    return out
+
+
+def tree_from_arrays(tree: Mapping, n_layers: int = 0, torch_device="cuda"):
+    """Any reference tree of numpy arrays (a flat dict such as the FM's, or
+    an LM's with stacked ``layers``) as the port's tree of tensors on
+    ``torch_device``, each leaf in its own dtype."""
+    dev = resolve_device(torch_device)
+    return _unstack(tree, n_layers, lambda a: _tensor(a, dev))
+
+
+def adamw_state_from_arrays(step, mu: Mapping, nu: Mapping, n_layers: int = 0,
+                            torch_device="cuda"):
+    """The port's ``AdamWState`` from the reference's ``(step, mu, nu)`` as
+    numpy arrays (bf16 moments as ``ml_dtypes`` arrays); ``n_layers`` for
+    an LM whose moments stack their layers."""
+    from repro_torch.optim.optimizers import AdamWState
+
+    dev = resolve_device(torch_device)
+    return AdamWState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                                        device=dev),
+                      mu=tree_from_arrays(mu, n_layers, dev),
+                      nu=tree_from_arrays(nu, n_layers, dev))
+
+
+def adamw_state_to_arrays(state) -> dict:
+    """``{"step": int, "mu", "nu"}`` of a port ``AdamWState`` in the
+    reference's layout (:func:`lm_tree_to_arrays`; bf16 as float32)."""
+    return {"step": int(state.step), "mu": lm_tree_to_arrays(state.mu),
+            "nu": lm_tree_to_arrays(state.nu)}
+
+
+def data_cursor(state: Mapping) -> dict:
+    """A data stream's cursor (``TokenStream``, ``RecsysStream``,
+    ``NeighborSampler``, ``GraphBatcher``: ``state()``) in the form both
+    packages' ``restore`` read: ``{"seed": int, "step": int}``."""
+    return {"seed": int(state["seed"]), "step": int(state["step"])}

@@ -100,6 +100,7 @@ bitset_mask.launches = 0
 def _check_cuda(reach: torch.Tensor) -> None:
     if reach.device.type != "cuda":
         raise ValueError(f"bitset_expand: unsupported device {reach.device}")
+    _build.check_untracked("bitset_expand", reach)  # int32: never tracked today
     if reach.data_ptr() % 16:
         raise ValueError("the kernels read 16-byte groups: the rows must be "
                          "16-byte aligned")

@@ -31,7 +31,7 @@ NVCC_FLAGS = (
 )
 #: every kernel source the port ships
 KERNELS = ("segment_sum", "bitset_expand", "flash_attention", "flash_attention_sm90",
-           "fm_interaction", "inherit_scan")
+           "flash_attention_bwd", "fm_interaction", "inherit_scan")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # serializes first uses: two threads (a service's flusher and its updater)
@@ -142,6 +142,20 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def check_untracked(what: str, *ts) -> None:
+    """Raise when autograd would record a call on ``ts``: grad mode is on
+    and one of them requires grad.  A kernel launched through ctypes gives a
+    result with no ``grad_fn``, so such a call would silently cut the
+    gradient; the kernels with a backward kernel take it through their
+    ``torch.autograd.Function`` instead."""
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
+                                       for t in ts):
+        raise RuntimeError(
+            f"{what}: an input requires grad and grad mode is on, but the CUDA "
+            "kernel's result would carry no gradient; call it under "
+            "torch.no_grad() or on detached inputs")
 
 
 def check_tensor(t: torch.Tensor, dtype, ndim: int, name: str, device=None) -> None:

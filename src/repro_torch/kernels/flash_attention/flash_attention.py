@@ -21,6 +21,13 @@ chunked streaming-softmax
 :func:`~repro_torch.kernels.flash_attention.ref.flash_torch` — only for
 tensors on the CPU.  The plain version is also the kernels' oracle on the
 card.
+
+The backward is ``csrc/flash_attention_bwd.cu`` (every dtype and D above,
+on the CUDA cores): :func:`flash_attention_bwd` launches it for CUDA
+tensors and takes :func:`flash_attention_bwd_plain` (autograd through
+``flash_torch``) for CPU tensors.  :class:`FlashAttentionFn` joins the two
+kernels for autograd; :func:`flash_attention_train` applies it, and
+training on the card reaches it through ``models.attention.attention``.
 """
 
 from __future__ import annotations
@@ -65,19 +72,16 @@ def _lib(name: str):
     return fn
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True) -> torch.Tensor:
-    """Plain PyTorch version of :func:`flash_attention`."""
-    return flash_torch(q, k, v, causal=causal)
+def _bwd_lib():
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 10 + [_I] * 7 + [ctypes.c_float, _P]
+        fn.restype = ctypes.c_int
+    return fn
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """q: [B, Hq, S, D]; k, v: [B, Hkv, S, D] -> [B, Hq, S, D] in q's dtype.
-
-    Contiguous float32 or bfloat16 tensors of one dtype, Hq % Hkv == 0,
-    any S >= 1.  CPU tensors take :func:`flash_attention_plain`; CUDA
-    tensors launch the kernel :func:`route` names (D in :data:`HEAD_DIMS`),
-    and anything it does not take raises."""
+def _check_qkv(q, k, v):
+    """(b, hq, hkv, s, d) of contiguous q, k, v that K3 takes; raises else."""
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"q: expected float32 or bfloat16, got {q.dtype}")
     _build.check_tensor(q, q.dtype, 4, "q")
@@ -90,10 +94,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     if hkv == 0 or hq % hkv:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return b, hq, hkv, s, d
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of :func:`flash_attention`."""
+    return flash_torch(q, k, v, causal=causal)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q: [B, Hq, S, D]; k, v: [B, Hkv, S, D] -> [B, Hq, S, D] in q's dtype.
+
+    Contiguous float32 or bfloat16 tensors of one dtype, Hq % Hkv == 0,
+    any S >= 1.  CPU tensors take :func:`flash_attention_plain`; CUDA
+    tensors launch the kernel :func:`route` names (D in :data:`HEAD_DIMS`),
+    and anything it does not take raises, as does a CUDA call that autograd
+    would record (use :func:`flash_attention_train`)."""
+    b, hq, hkv, s, d = _check_qkv(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _build.check_untracked("flash_attention", q, k, v)
     name = route(q.dtype, d)
     if b * hq > 65535:
         raise ValueError(f"B * Hq = {b * hq} exceeds the grid's 65535 rows")
@@ -119,3 +142,76 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 #: reset them to 0)
 flash_attention.launches = 0
 flash_attention.launches_by_route = {"sm90": 0, "simt": 0}
+
+
+def flash_attention_bwd_plain(q, k, v, do, *, causal: bool = True):
+    """Plain PyTorch version of :func:`flash_attention_bwd`: autograd
+    through :func:`~repro_torch.kernels.flash_attention.ref.flash_torch`."""
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_torch(*qkv, causal=causal)
+        return torch.autograd.grad(out, qkv, do)
+
+
+def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True):
+    """(dq, dk, dv) of :func:`flash_attention` at q, k, v, given its output
+    ``o`` and the output's gradient ``do`` (both [B, Hq, S, D] in q's
+    dtype), each in its input's shape and dtype.  CPU tensors take
+    :func:`flash_attention_bwd_plain`; CUDA tensors launch the backward
+    kernel's three passes (D in :data:`HEAD_DIMS`, float32 or bf16), and
+    anything it does not take raises.  Every call on the card adds one to
+    ``flash_attention_bwd.launches``."""
+    b, hq, hkv, s, d = _check_qkv(q, k, v)
+    for name, t in (("o", o), ("do", do)):
+        _build.check_tensor(t, q.dtype, 4, name, q.device)
+        if t.shape != q.shape:
+            raise ValueError(f"{name} is {tuple(t.shape)}, q {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, do, causal=causal)
+    route(q.dtype, d)  # raises for what no kernel takes
+    if b * hq > 65535:
+        raise ValueError(f"B * Hq = {b * hq} exceeds the grid's 65535 rows")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if s == 0 or b == 0:
+        return dq, dk, dv
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    fn = _bwd_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), _DTYPE_CODE[q.dtype], b, hq, hkv, s, d, int(causal),
+                 d ** -0.5, stream)
+    _build.check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+#: backward calls on the card so far, each three kernel launches (stats,
+#: dK/dV, dQ); a plain count, callers may reset it to 0
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K3 for autograd: the forward kernel, and the backward kernel on its
+    saved q, k, v and output (the plain versions for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o = flash_attention(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(), causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention_train(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """:func:`flash_attention` that autograd differentiates through
+    :func:`flash_attention_bwd`."""
+    return FlashAttentionFn.apply(q, k, v, causal)

@@ -182,6 +182,7 @@ def inherit_scan(wdp: torch.Tensor, forest: Forest, *,
                                   max_level=int(forest.max_level), monoids=monoids)
     if dev.type != "cuda":
         raise ValueError(f"inherit_scan: unsupported device {dev}")
+    _build.check_untracked("inherit_scan", wdp)
     chains = forest.chains
     chains.check(n, dev)
     out = torch.empty_like(wdp)

@@ -110,6 +110,7 @@ def segment_reduce_tiled(values: torch.Tensor, gather: Optional[torch.Tensor],
                                     num_out_tiles=num_out_tiles, ts=ts)
     if dev.type != "cuda":
         raise ValueError(f"segment_reduce_tiled: unsupported device {dev}")
+    _build.check_untracked("segment_reduce_tiled", values)
     if nm == 0 or tm % 4:
         raise ValueError(f"the kernel needs at least one input tile and tm % 4 == 0 "
                          f"(nm={nm}, tm={tm})")

@@ -5,13 +5,24 @@ flash kernel's streaming softmax over query and key chunks, O(S * chunk)
 memory, and — unlike ``flash_jnp`` — any S (a ragged last chunk is masked
 by slicing).  ``local_window`` gives sliding-window attention on the plain
 paths; the kernel has none, as the TPU kernel has none.
+
+On the card a call that autograd records (grad mode on, an input requiring
+grad: training) goes through
+:func:`~repro_torch.kernels.flash_attention.flash_attention.flash_attention_train`,
+K3 with its backward kernel; any other call launches K3's forward alone,
+as serving always has.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+import torch
+
+from repro_torch.kernels.flash_attention.flash_attention import (
+    flash_attention,
+    flash_attention_train,
+)
 from repro_torch.kernels.flash_attention.ref import flash_torch, mha_ref
 
 __all__ = ["BACKENDS", "attention", "flash_torch"]
@@ -37,6 +48,9 @@ def attention(q, k, v, *, causal: bool = True, local_window: Optional[int] = Non
             raise NotImplementedError(
                 "the flash-attention kernel has no sliding window; pass "
                 "backend='flash_torch' or 'naive' for local_window")
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return flash_attention_train(q, k, v, causal=causal)
         return flash_attention(q, k, v, causal=causal)
     if backend == "flash_torch":
         return flash_torch(q, k, v, causal=causal, local_window=local_window,

@@ -1,4 +1,4 @@
-"""Shared layers (functional, plain tensors), the serving subset.
+"""Shared layers (functional, plain tensors).
 
 Conventions, as in the reference:
 
@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int,
@@ -82,3 +83,52 @@ def mlp_apply(params, x, act=F.relu, final_act: bool = False):
         if i < len(params) - 1 or final_act:
             x = act(x)
     return x
+
+
+def _chunk_nll(xi, w, li, z_loss: float):
+    """Summed NLL (+ z-loss) of one sequence chunk: ``xi`` [B, c, D] against
+    ``w`` [D, V] (already in ``xi``'s dtype), labels ``li`` [B, c]."""
+    logits = (xi @ w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    nll = lse - logits.gather(-1, li[..., None].long()).squeeze(-1)
+    if z_loss:
+        nll = nll + z_loss * torch.square(lse)
+    return torch.sum(nll)
+
+
+def lm_loss_fused(x, w, labels, z_loss: float = 0.0, chunk: int = 512):
+    """Fused unembed + cross entropy, chunked over the sequence axis.
+
+    Never builds the whole [B, S, V] logits: each chunk's logits are
+    produced, reduced to its summed NLL and, under one
+    ``torch.utils.checkpoint`` a chunk, recomputed in the backward.  The
+    chunk is ``chunk`` or, as in the reference, the largest length below it
+    that divides S (S = 2047 gives chunks of 89).  The chunks' sums are
+    added in order, as the reference's scan adds them.
+
+    x: [B, S, D] final hidden states; w: [D, V]; labels: [B, S].  Returns
+    the mean over B * S."""
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    while s % chunk:
+        chunk -= 1
+    wc = w.to(x.dtype)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        xi, li = x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        if torch.is_grad_enabled():
+            part = checkpoint(_chunk_nll, xi, wc, li, z_loss, use_reentrant=False)
+        else:
+            part = _chunk_nll(xi, wc, li, z_loss)
+        total = total + part
+    return total / (b * s)
+
+
+def cross_entropy(logits, labels, z_loss: float = 0.0):
+    """logits: [..., V]; labels int.  Mean NLL (+ optional z-loss), in float32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    nll = lse - logits.gather(-1, labels[..., None].long()).squeeze(-1)
+    if z_loss:
+        nll = nll + z_loss * torch.square(lse)
+    return torch.mean(nll)

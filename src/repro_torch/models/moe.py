@@ -1,6 +1,6 @@
-"""Mixture-of-Experts transformer (grok-1-314b, qwen2-moe-a2.7b), serving.
+"""Mixture-of-Experts transformer (grok-1-314b, qwen2-moe-a2.7b).
 
-The serving half of the reference's ``models/moe.py``: the dense model's
+The reference's ``models/moe.py``: the dense model's
 attention (:mod:`repro_torch.models.transformer`'s layer loops, so K3 on
 the card) with a routed feed-forward.  The router takes a softmax top-k
 over the experts; the dispatch is sort-based with a per-group capacity,
@@ -22,18 +22,24 @@ reference's semantics are kept bit for bit where they are discrete:
   with the expert-sorted updates; no atomics, so it is deterministic on
   the card too.
 
-The port holds the router and expert weights in the compute dtype, as the
-dense model holds its matmul weights: the reference casts them at every use.
+The router and expert weights are cast to the compute dtype at each use,
+as the dense model's matmul weights are: :func:`init` holds them in the
+compute dtype for serving, :func:`init_master` in float32 for training.
+The dispatch is differentiable: its gathers, index writes and
+``torch.bmm``s carry gradients to the tokens, gates and expert weights,
+and the aux loss carries them to the router.
 
 Only the single-device dispatch is ported; the reference's ``shard_map``
 branch (expert FFN tensor-parallel over a mesh) waits for the TPU-mesh
-modules, ROADMAP Queue 1 item 8e.  Training (``loss_fn``,
-``forward_hidden``) waits for item 8d.
+modules, ROADMAP Queue 1 item 8e.
 
 Functional API:
-    params = init(generator, cfg)
+    params = init(generator, cfg)                  serving dtypes
+    params = init_master(generator, cfg)           float32 masters
     x, aux = layer_fwd(lp, x, cfg, cos, sin)       one layer
     logits, aux = forward(params, tokens, cfg)     [B, S, V], scalar
+    x, aux = forward_hidden(params, tokens, cfg)   [B, S, d], scalar
+    loss = loss_fn(params, batch, cfg)             LM loss + aux
     kv, logits = prefill(params, tokens, cfg)
     logits, kv = decode_step(params, token, kv, pos, cfg)
 """
@@ -94,17 +100,17 @@ def port_dtype(name: str, cfg: MoEConfig) -> torch.dtype:
     return cfg.cdtype if name in MOE_WEIGHTS else T.port_dtype(name, cfg)
 
 
-def layer_init(generator: torch.Generator, cfg: MoEConfig):
+def layer_init(generator: torch.Generator, cfg: MoEConfig, dtype_of=port_dtype):
     d, hd, f, ep = cfg.d_model, cfg.head_dim, cfg.d_ff, cfg.n_experts_padded
     dev = generator.device
 
     def dense(name, d_in, d_out, scale=None):
-        return L.dense_init(generator, d_in, d_out, port_dtype(name, cfg), scale)
+        return L.dense_init(generator, d_in, d_out, dtype_of(name, cfg), scale)
 
     def experts(name, d_in, d_out):
         w = torch.randn((ep, d_in, d_out), generator=generator, dtype=torch.float32,
                         device=dev)
-        return (w * d_in ** -0.5).to(port_dtype(name, cfg))
+        return (w * d_in ** -0.5).to(dtype_of(name, cfg))
 
     p = {
         "ln1": L.rmsnorm_init(d, cfg.pdtype, dev),
@@ -125,17 +131,25 @@ def layer_init(generator: torch.Generator, cfg: MoEConfig):
     return p
 
 
-def init(generator: torch.Generator, cfg: MoEConfig):
+def init(generator: torch.Generator, cfg: MoEConfig, dtype_of=port_dtype):
     """Random params on ``generator.device``, drawn in float32 as the
-    reference draws them (normal, scaled) and cast to the port's dtypes."""
+    reference draws them (normal, scaled) and cast to ``dtype_of(name,
+    cfg)``: the port's serving dtypes by default."""
     params = {
-        "embed": L.embed_init(generator, cfg.vocab, cfg.d_model, cfg.cdtype),
-        "layers": [layer_init(generator, cfg) for _ in range(cfg.n_layers)],
+        "embed": L.embed_init(generator, cfg.vocab, cfg.d_model, dtype_of("embed", cfg)),
+        "layers": [layer_init(generator, cfg, dtype_of) for _ in range(cfg.n_layers)],
         "ln_f": L.rmsnorm_init(cfg.d_model, cfg.pdtype, generator.device),
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = L.dense_init(generator, cfg.d_model, cfg.vocab, cfg.cdtype)
+        params["unembed"] = L.dense_init(generator, cfg.d_model, cfg.vocab,
+                                         dtype_of("unembed", cfg))
     return params
+
+
+def init_master(generator: torch.Generator, cfg: MoEConfig):
+    """:func:`init`'s draws with every param in the param dtype: the
+    float32 masters training updates."""
+    return init(generator, cfg, T.master_dtype)
 
 
 # ---------------------------- dispatch --------------------------------- #
@@ -157,7 +171,7 @@ def _route(xt, router, cfg: MoEConfig, experts=None):
     when given, stands in for the top-k choice (the checks replay one
     run's routing in another, so the two differ by rounding alone)."""
     ep = cfg.n_experts_padded
-    logits = (xt @ router).float()
+    logits = (xt @ router.to(xt.dtype)).float()
     if ep != cfg.n_experts:  # padded experts are never routed to
         pad = torch.arange(ep, device=xt.device) >= cfg.n_experts
         logits = logits.masked_fill(pad, -1e30)
@@ -257,7 +271,7 @@ def _silu(h):
     ``h * (1 / (1 + exp(-h)))``, rounding after each step.  ``F.silu``
     rounds once, which in bf16 moves a third of the outputs by a step, and
     a step in an expert's output can flip a later layer's top-k."""
-    return h * torch.reciprocal_(torch.exp(-h).add_(1))
+    return h * torch.reciprocal(torch.exp(-h) + 1)
 
 
 def _dispatch(xt, lp, cfg: MoEConfig):
@@ -273,9 +287,10 @@ def _dispatch(xt, lp, cfg: MoEConfig):
     tok = torch.arange(g * t * k, device=xt.device) // k
     buf[slot.reshape(-1)] = xt.reshape(g * t, d)[tok]  # duplicates only at the sink
     buf = buf[:rows].view(ep, g * cap, d)
-    h = torch.bmm(buf, lp["we_gate"])
-    u = torch.bmm(buf, lp["we_up"])
-    y = torch.bmm(_silu(h) * u, lp["we_down"]).view(rows, d)
+    cd = xt.dtype
+    h = torch.bmm(buf, lp["we_gate"].to(cd))
+    u = torch.bmm(buf, lp["we_up"].to(cd))
+    y = torch.bmm(_silu(h) * u, lp["we_down"].to(cd)).view(rows, d)
     # each token's choices in ascending expert order, added one at a time
     by_expert = gate_idx.argsort(dim=-1)
     slot = slot.gather(2, by_expert)
@@ -286,7 +301,8 @@ def _dispatch(xt, lp, cfg: MoEConfig):
         contrib = torch.where((s < rows)[..., None], y[s.clamp(max=rows - 1)], 0)
         out = out + contrib * gate[..., j, None]
     if cfg.n_shared_experts:
-        out = out + (_silu(xt @ lp["ws_gate"]) * (xt @ lp["ws_up"])) @ lp["ws_down"]
+        out = out + ((_silu(xt @ lp["ws_gate"].to(cd)) * (xt @ lp["ws_up"].to(cd)))
+                     @ lp["ws_down"].to(cd))
     return out, aux
 
 
@@ -348,7 +364,32 @@ def forward(params, tokens, cfg: MoEConfig, attn_backend: Optional[str] = None,
         x, a = layer_fwd(lp, x, cfg, cos, sin, attn_backend=attn_backend, mesh=mesh)
         aux = aux + a
     x = L.rmsnorm(x, params["ln_f"])
-    return (x @ T._unembed(params)).float(), aux
+    return (x @ T._unembed(params, cfg)).float(), aux
+
+
+def forward_hidden(params, tokens, cfg: MoEConfig, attn_backend: Optional[str] = None,
+                   mesh=None):
+    """tokens -> (final hidden states [B, S, d], the layers' aux summed in
+    layer order); each layer under ``torch.utils.checkpoint`` in training
+    when ``cfg.remat`` is set."""
+    x = _embed(params, tokens, cfg)
+    cos, sin = L.rope_freqs(cfg.head_dim, tokens.shape[1], cfg.rope_theta, x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def layer(lp, x, cfg, cos, sin, positions=None, attn_backend=None):
+        return layer_fwd(lp, x, cfg, cos, sin, positions, attn_backend, mesh)
+
+    for lp in params["layers"]:
+        x, a = T.run_layer(layer, lp, x, cfg, cos, sin, attn_backend)
+        aux = aux + a
+    return L.rmsnorm(x, params["ln_f"]), aux
+
+
+def loss_fn(params, batch, cfg: MoEConfig, attn_backend: Optional[str] = None, mesh=None):
+    """The dense model's next-token loss plus the layers' load-balance aux."""
+    x, aux = forward_hidden(params, batch["tokens"], cfg, attn_backend, mesh)
+    return L.lm_loss_fused(x[:, :-1], T._unembed(params, cfg), batch["labels"][:, 1:],
+                           cfg.z_loss) + aux
 
 
 # ---------------------------- serving ---------------------------------- #
@@ -358,7 +399,7 @@ def prefill(params, tokens, cfg: MoEConfig, attn_backend: Optional[str] = None,
     [L, B, Hkv, S, D], as :func:`repro_torch.models.transformer.prefill`."""
     x, ks, vs = T._layers(params, _embed(params, tokens, cfg), cfg, attn_backend,
                           _ffn(cfg, mesh, []))
-    logits = (x[:, -1] @ T._unembed(params)).float()
+    logits = (x[:, -1] @ T._unembed(params, cfg)).float()
     return {"k": torch.stack(ks), "v": torch.stack(vs)}, logits
 
 
@@ -368,4 +409,4 @@ def decode_step(params, token, kv, pos: int, cfg: MoEConfig, mesh=None):
     own (B <= ``dispatch_groups``), so every expert's weights are read every
     step (capacity 1), as in the reference."""
     x = T._decode_layers(params, token, kv, pos, cfg, _ffn(cfg, mesh, []))
-    return (x[:, 0] @ T._unembed(params)).float(), kv
+    return (x[:, 0] @ T._unembed(params, cfg)).float(), kv

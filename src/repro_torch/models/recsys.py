@@ -1,4 +1,4 @@
-"""Factorization Machine (Rendle, ICDM'10): the serving half.
+"""Factorization Machine (Rendle, ICDM'10): serving and training.
 
 39 sparse fields, embed_dim 10, 2-way FM interaction via the O(nk)
 sum-square trick (kernel K4, ``kernels/fm_interaction``).  The tables are
@@ -6,7 +6,9 @@ one fused ``[total_rows, K]`` matrix held whole on one card (3.21 GB at the
 full config) with mod-hash row placement; lookups are plain gathers.
 
 EmbeddingBag is a gather + ``index_add_`` (a segment sum), as in the
-reference.
+reference.  :func:`loss_fn` is the reference's stable logistic loss; in
+training on the card the interaction's gradient comes from K4's backward
+kernel (``fm_second_order`` takes the autograd route).
 """
 
 from __future__ import annotations
@@ -83,6 +85,15 @@ def forward(params, x, cfg: FMConfig):
     emb = params["emb"][rows]  # [B, F, K]
     lin = params["w1"][rows].sum(dim=-1)  # [B]
     return params["bias"].float() + lin.float() + fm_second_order(emb.float())
+
+
+def loss_fn(params, batch, cfg: FMConfig):
+    """Mean logistic loss of :func:`forward`'s logits against ``batch["y"]``
+    (0/1), in the stable form max(z, 0) - z y + log1p(exp(-|z|))."""
+    logits = forward(params, batch["x"], cfg)
+    y = batch["y"].float()
+    return torch.mean(torch.clamp(logits, min=0) - logits * y
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
 
 
 def embedding_bag(table, ids, bag_ids, num_bags: int, weights=None, mode="sum"):

@@ -1,19 +1,26 @@
 """Dense decoder-only transformer: GQA + RoPE + SwiGLU (+ optional qk-norm).
 
-The serving half of the reference's ``models/transformer.py``: qwen3-0.6b
-and minitron exactly (their public configs), forward, prefill and decode.
-Params are a dict with the layers as a list of per-layer dicts (the
-reference stacks them ``[L, ...]`` for ``lax.scan``; the port loops).
+The reference's ``models/transformer.py``: qwen3-0.6b and minitron exactly
+(their public configs), forward, training loss, prefill and decode.  Params
+are a dict with the layers as a list of per-layer dicts (the reference
+stacks them ``[L, ...]`` for ``lax.scan``; the port loops).
 
-The port holds the embedding and every matmul weight in the compute dtype:
-the reference casts its float32 params to the compute dtype at every use,
-so casting once at load gives the same bits and spares each decode step a
-re-read of the float32 weights.  Norm gains stay in the param dtype (they
-are used in float32).
+Every matmul weight is cast to the compute dtype at its use, as the
+reference casts its float32 params.  For serving, :func:`init` holds the
+embedding and the matmul weights in the compute dtype already, so the cast
+is a no-op and each decode step spares a re-read of float32 weights; for
+training, :func:`init_master` holds every param in the param dtype
+(float32 masters, the reference's ``init``), so an optimizer step is not
+lost to bf16 rounding.  Norm gains stay in the param dtype (they are used
+in float32).  ``cfg.remat`` checkpoints each layer in training
+(``torch.utils.checkpoint``): the backward recomputes it, attention kernel
+included.
 
 Functional API:
-    params = init(generator, cfg)
+    params = init(generator, cfg)                  serving dtypes
+    params = init_master(generator, cfg)           float32 masters
     logits = forward(params, tokens, cfg)          [B, S, V]
+    loss   = loss_fn(params, batch, cfg)
     kv, logits = prefill(params, tokens, cfg)
     logits, kv = decode_step(params, token, kv, pos, cfg)
 """
@@ -24,6 +31,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ref import decode_ref
 from repro_torch.models import layers as L
@@ -49,9 +57,9 @@ class TransformerConfig:
     local_window: Optional[int] = None  # sliding-window attention (plain paths)
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
-    # the reference's backward checkpointing of each layer: no effect in a
-    # forward-only port (serving), kept so configs read the same
+    # checkpoint each layer in training (recomputed in the backward)
     remat: bool = True
+    z_loss: float = 1e-4
     # flash_torch chunking (the kernel tiles on its own)
     attn_q_chunk: int = 512
     attn_kv_chunk: int = 512
@@ -85,12 +93,17 @@ def port_dtype(name: str, cfg: TransformerConfig) -> torch.dtype:
     return cfg.pdtype
 
 
-def layer_init(generator: torch.Generator, cfg: TransformerConfig):
+def master_dtype(name: str, cfg: TransformerConfig) -> torch.dtype:
+    """The dtype training holds param ``name`` in: the param dtype."""
+    return cfg.pdtype
+
+
+def layer_init(generator: torch.Generator, cfg: TransformerConfig, dtype_of=port_dtype):
     d, hd = cfg.d_model, cfg.head_dim
     dev = generator.device
 
     def dense(name, d_in, d_out):
-        return L.dense_init(generator, d_in, d_out, port_dtype(name, cfg))
+        return L.dense_init(generator, d_in, d_out, dtype_of(name, cfg))
 
     p = {
         "ln1": L.rmsnorm_init(d, cfg.pdtype, dev),
@@ -109,32 +122,41 @@ def layer_init(generator: torch.Generator, cfg: TransformerConfig):
     return p
 
 
-def init(generator: torch.Generator, cfg: TransformerConfig):
+def init(generator: torch.Generator, cfg: TransformerConfig, dtype_of=port_dtype):
     """Random params on ``generator.device``, drawn in float32 as the
-    reference draws them (normal, scaled) and cast to the port's dtypes."""
+    reference draws them (normal, scaled) and cast to ``dtype_of(name,
+    cfg)``: the port's serving dtypes by default."""
     params = {
-        "embed": L.embed_init(generator, cfg.vocab, cfg.d_model, cfg.cdtype),
-        "layers": [layer_init(generator, cfg) for _ in range(cfg.n_layers)],
+        "embed": L.embed_init(generator, cfg.vocab, cfg.d_model, dtype_of("embed", cfg)),
+        "layers": [layer_init(generator, cfg, dtype_of) for _ in range(cfg.n_layers)],
         "ln_f": L.rmsnorm_init(cfg.d_model, cfg.pdtype, generator.device),
     }
     if not cfg.tie_embeddings:
         params["unembed"] = L.dense_init(generator, cfg.d_model, cfg.vocab,
-                                         cfg.cdtype)
+                                         dtype_of("unembed", cfg))
     return params
 
 
-def _unembed(params):
+def init_master(generator: torch.Generator, cfg: TransformerConfig):
+    """:func:`init`'s draws with every param in the param dtype: the
+    float32 masters training updates."""
+    return init(generator, cfg, master_dtype)
+
+
+def _unembed(params, cfg: TransformerConfig):
     w = params.get("unembed")
-    return w if w is not None else params["embed"].T
+    w = w if w is not None else params["embed"].T
+    return w.to(cfg.cdtype)
 
 
 def _qkv(lp, x, cfg: TransformerConfig, positions, cos, sin):
     b, s, _ = x.shape
     hd = cfg.head_dim
     xn = L.rmsnorm(x, lp["ln1"])
-    q = (xn @ lp["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = (xn @ lp["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (xn @ lp["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    cd = cfg.cdtype
+    q = (xn @ lp["wq"].to(cd)).reshape(b, s, cfg.n_heads, hd)
+    k = (xn @ lp["wk"].to(cd)).reshape(b, s, cfg.n_kv_heads, hd)
+    v = (xn @ lp["wv"].to(cd)).reshape(b, s, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = L.rmsnorm(q, lp["q_norm"])
         k = L.rmsnorm(k, lp["k_norm"])
@@ -145,7 +167,8 @@ def _qkv(lp, x, cfg: TransformerConfig, positions, cos, sin):
 
 def _dense_ffn(lp, xn):
     """The dense layer's MLP: one SwiGLU on the normalized residual."""
-    return L.swiglu(xn, lp["w_gate"], lp["w_up"], lp["w_down"])
+    return L.swiglu(xn, lp["w_gate"].to(xn.dtype), lp["w_up"].to(xn.dtype),
+                    lp["w_down"].to(xn.dtype))
 
 
 def _mix(lp, x, o, cfg: TransformerConfig, ffn=_dense_ffn):
@@ -153,7 +176,7 @@ def _mix(lp, x, o, cfg: TransformerConfig, ffn=_dense_ffn):
     layer's feed-forward ``ffn(lp, xn)`` (the MoE model passes its own)."""
     b, s = x.shape[:2]
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
-    x = x + o @ lp["wo"]
+    x = x + o @ lp["wo"].to(cfg.cdtype)
     return x + ffn(lp, L.rmsnorm(x, lp["ln2"]))
 
 
@@ -178,7 +201,47 @@ def forward(params, tokens, cfg: TransformerConfig,
     """tokens: int [B, S] -> logits float32 [B, S, V]."""
     x = params["embed"][tokens.long()].to(cfg.cdtype)
     x, _, _ = _layers(params, x, cfg, attn_backend)
-    return (x @ _unembed(params)).float()
+    return (x @ _unembed(params, cfg)).float()
+
+
+def layer_fwd(lp, x, cfg: TransformerConfig, cos, sin, positions=None,
+              attn_backend: Optional[str] = None):
+    """One layer over ``x`` [B, S, d]."""
+    q, k, v = _qkv(lp, x, cfg, positions, cos, sin)
+    o = attention(q, k, v, causal=True, local_window=cfg.local_window,
+                  backend=attn_backend, q_chunk=cfg.attn_q_chunk,
+                  kv_chunk=cfg.attn_kv_chunk)
+    return _mix(lp, x, o, cfg)
+
+
+def run_layer(layer_fn, lp, x, cfg, cos, sin, attn_backend):
+    """``layer_fn(lp, x, cfg, cos, sin, attn_backend=...)``, under one
+    ``torch.utils.checkpoint`` when ``cfg.remat`` is set and autograd is
+    recording: the backward recomputes the layer from its input."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(layer_fn, lp, x, cfg, cos, sin, None, attn_backend,
+                          use_reentrant=False)
+    return layer_fn(lp, x, cfg, cos, sin, None, attn_backend)
+
+
+def forward_hidden(params, tokens, cfg: TransformerConfig, layer_fn=layer_fwd,
+                   attn_backend: Optional[str] = None):
+    """tokens -> final hidden states [B, S, D] (pre-unembed)."""
+    x = params["embed"][tokens.long()].to(cfg.cdtype)
+    cos, sin = L.rope_freqs(cfg.head_dim, tokens.shape[1], cfg.rope_theta, x.device)
+    for lp in params["layers"]:
+        x = run_layer(layer_fn, lp, x, cfg, cos, sin, attn_backend)
+    return L.rmsnorm(x, params["ln_f"])
+
+
+def loss_fn(params, batch, cfg: TransformerConfig, layer_fn=layer_fwd,
+            attn_backend: Optional[str] = None):
+    """Next-token loss of ``batch`` ({"tokens", "labels"} [B, S]): the fused
+    chunked cross entropy (+ z-loss) of positions 0..S-2 against labels
+    1..S-1, the mean over B * (S - 1)."""
+    x = forward_hidden(params, batch["tokens"], cfg, layer_fn, attn_backend)
+    return L.lm_loss_fused(x[:, :-1], _unembed(params, cfg), batch["labels"][:, 1:],
+                           cfg.z_loss)
 
 
 def cache_update_add(cache, new, pos: int):
@@ -200,7 +263,7 @@ def prefill(params, tokens, cfg: TransformerConfig,
     :func:`~repro_torch.models.attention.attention`'s ``backend``."""
     x = params["embed"][tokens.long()].to(cfg.cdtype)
     x, ks, vs = _layers(params, x, cfg, attn_backend)
-    logits = (x[:, -1] @ _unembed(params)).float()
+    logits = (x[:, -1] @ _unembed(params, cfg)).float()
     return {"k": torch.stack(ks), "v": torch.stack(vs)}, logits
 
 
@@ -210,7 +273,7 @@ def decode_step(params, token, kv, pos: int, cfg: TransformerConfig):
     token: int [B]; kv: {"k","v": [L, B, Hkv, S, D]}, updated in place;
     pos: current length.  Returns (logits [B, V], kv)."""
     x = _decode_layers(params, token, kv, pos, cfg)
-    return (x[:, 0] @ _unembed(params)).float(), kv
+    return (x[:, 0] @ _unembed(params, cfg)).float(), kv
 
 
 def _decode_layers(params, token, kv, pos: int, cfg: TransformerConfig,

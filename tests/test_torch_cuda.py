@@ -935,3 +935,234 @@ def test_moe_smoke_prefill_on_card_matches_cpu(cuda, monkeypatch, mod):
     torch.testing.assert_close(logits.cpu(), logits_h, atol=0.06, rtol=0.05)
     for k in kv:
         torch.testing.assert_close(kv[k].cpu(), kv_h[k], atol=0.06, rtol=0.05)
+
+
+# ------------------------- training on the card ------------------------- #
+def _rel_l2(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
+
+
+def _f32_close(got, want):
+    """Each element within 1e-4 (|plain| + rms(plain))."""
+    rms = want.float().square().mean().sqrt()
+    return bool(((got.float() - want.float()).abs()
+                 <= 1e-4 * (want.float().abs() + rms)).all())
+
+
+# (B, Hq, Hkv, S, D, causal): the head sizes and group sizes K3 takes,
+# ragged S around the 64-row tiles, and non-causal
+K3_BWD_CASES = [(2, 4, 2, 256, 64, True), (1, 8, 8, 130, 32, True), (2, 2, 1, 77, 16, True),
+                (1, 4, 2, 1000, 128, True), (3, 6, 3, 1, 64, True), (1, 4, 4, 65, 128, True),
+                (1, 16, 8, 2048, 64, True), (1, 16, 16, 513, 128, True),
+                (2, 4, 2, 333, 64, False), (1, 8, 1, 200, 32, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal", K3_BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain(cuda, monkeypatch, dtype, b, hq, hkv, s,
+                                                  d, causal):
+    """K3's backward kernel against autograd through flash_torch on the same
+    q, k, v, o and dO: float32 within 1e-4 (|plain| + rms(plain)) in every
+    element; bf16 a relative L2 error of at most 2e-2 a tensor; bitwise
+    across two launches; one count a call."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(s + d + hq)
+    q, k, v = (torch.randn((b, h, s, d), generator=g, device=cuda).to(dtype)
+               for h in (hq, hkv, hkv))
+    do = torch.randn((b, hq, s, d), generator=g, device=cuda).to(dtype)
+    o = fa.flash_attention(q, k, v, causal=causal)
+    want = fa.flash_attention_bwd_plain(q, k, v, do, causal=causal)
+    monkeypatch.setattr(fa, "flash_attention_bwd_plain", _fail)
+    monkeypatch.setattr(fa, "flash_torch", _fail)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    again = fa.flash_attention_bwd(q, k, v, o, do, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 2
+    for x, y, w, name in zip(got, again, want, ("dq", "dk", "dv")):
+        assert x.dtype == dtype and x.shape == w.shape, name
+        assert torch.equal(x, y), name
+        assert bool(torch.isfinite(x).all()), name
+        if not bool(w.float().abs().max() > 0):
+            # S = 1: one key a row, so dq is 0; the kernel's is dp - delta
+            # rounded (the two sums of dO . v in another order) times k
+            assert float(x.float().abs().max()) <= 1e-5, name
+        elif dtype == torch.float32:
+            assert _f32_close(x, w), name
+        else:
+            assert _rel_l2(x, w) <= 2e-2, (name, _rel_l2(x, w))
+
+
+def test_attention_training_on_card_takes_both_kernels(cuda, monkeypatch):
+    """A loss through ``attention`` on the card: one forward launch, one
+    backward call, gradients in q, k and v nonzero and within bf16's bound
+    of autograd through the plain version; no plain version reached."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import attention as attn_mod
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((2, h, 300, 64), generator=g, device=cuda)
+               .bfloat16().requires_grad_() for h in (8, 4, 4))
+    with torch.enable_grad():
+        ref = fa.flash_torch(q, k, v).float().square().sum()
+        want = torch.autograd.grad(ref, (q, k, v))
+    monkeypatch.setattr(attn_mod, "flash_torch", _fail)
+    monkeypatch.setattr(fa, "flash_attention_bwd_plain", _fail)
+    fwd, bwd = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    out = attn_mod.attention(q, k, v)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out.float().square().sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd.launches) == (fwd + 1, bwd + 1)
+    for x, w in zip(got, want):
+        assert float(x.float().abs().sum()) > 0
+        assert _rel_l2(x, w) <= 2e-2
+    with torch.no_grad():  # serving: the forward alone
+        attn_mod.attention(q, k, v)
+    assert fa.flash_attention_bwd.launches == bwd + 1
+
+
+@pytest.mark.parametrize("b,f,k", [(64, 39, 10), (100, 8, 16), (256, 5, 3), (65536, 39, 10)])
+def test_fm_interaction_bwd_kernel_matches_plain(cuda, monkeypatch, b, f, k):
+    """K4's backward kernel against autograd through the oracle: each
+    element within 1e-5 of |g| (sum_f |e| + |e|); bitwise across launches;
+    through ``fm_second_order`` in training one forward and one backward
+    launch."""
+    from repro_torch.kernels.fm_interaction import fm_interaction as fm_mod
+    from repro_torch.kernels.fm_interaction.ops import fm_second_order
+
+    gen = torch.Generator(device=cuda).manual_seed(b)
+    emb = torch.randn((b, f, k), generator=gen, device=cuda)
+    g = torch.randn((b,), generator=gen, device=cuda)
+    want = fm_mod.fm_interaction_bwd_plain(emb, g)
+    mass = g.abs()[:, None, None] * (emb.abs().sum(1, keepdim=True) + emb.abs())
+    monkeypatch.setattr(fm_mod, "fm_interaction_bwd_plain", _fail)
+    monkeypatch.setattr(fm_mod, "fm_interaction_plain", _fail)
+    before = fm_mod.fm_interaction_bwd.launches
+    got = fm_mod.fm_interaction_bwd(emb, g)
+    again = fm_mod.fm_interaction_bwd(emb, g)
+    torch.cuda.synchronize()
+    assert fm_mod.fm_interaction_bwd.launches == before + 2
+    assert torch.equal(got, again)
+    assert bool(((got - want).abs() <= 1e-5 * mass + 1e-30).all())
+    e = emb.clone().requires_grad_()
+    fwd = fm_mod.fm_interaction.launches
+    (through,) = torch.autograd.grad(fm_second_order(e), e, g)
+    assert (fm_mod.fm_interaction.launches, fm_mod.fm_interaction_bwd.launches) == \
+        (fwd + 1, before + 3)
+    assert torch.equal(through, got)
+
+
+def test_k1_refuses_a_tracked_input(cuda):
+    """K1's wrapper raises on values that autograd would record, instead of
+    returning a result with no gradient; untracked, it launches."""
+    from repro_torch.kernels.segment_reduce import ops
+
+    rng = np.random.default_rng(0)
+    seg = np.sort(rng.integers(0, 30, 200)).astype(np.int32)
+    plan = ops.build_tile_plan(rng.integers(0, 50, 200).astype(np.int32), seg, 30,
+                               torch_device=cuda)
+    vals = torch.randn((50, 2), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ops.segment_sum(plan, vals)
+    with torch.no_grad():
+        ops.segment_sum(plan, vals)
+    ops.segment_sum(plan, vals.detach())
+
+
+def test_k2_inputs_are_never_tracked(cuda):
+    """K2 reads int32 bitsets, which cannot require grad, so autograd never
+    records it: under grad mode it launches and its result has no grad_fn."""
+    from repro_torch.kernels.bitset_expand import ops
+
+    es, ed = _k2_edges("er", 300)
+    plan = ops.build_expand_plan(es, ed, 300, torch_device=cuda)
+    with pytest.raises(RuntimeError):
+        torch.zeros(4, dtype=torch.int32, device=cuda).requires_grad_()
+    with torch.enable_grad():
+        r, m = ops.khop_reach_masked(plan, 300, np.arange(5), 2, 128)
+    assert r.grad_fn is None and not r.requires_grad
+
+
+def test_inherit_scan_refuses_a_tracked_input(cuda):
+    from repro_torch.kernels.inherit_scan import inherit_scan as scan_mod
+    from repro_torch.kernels.inherit_scan.ops import forest_layout
+
+    pid, level = _scan_forest("random", 100, np.random.default_rng(0))
+    forest = forest_layout(pid, level).map(lambda a: torch.from_numpy(a).to(cuda))
+    x = torch.randn((100, 2), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        scan_mod.inherit_scan(x, forest, monoids=(2, 0, 0))
+    with torch.no_grad():
+        scan_mod.inherit_scan(x, forest, monoids=(2, 0, 0))
+
+
+def test_k3_and_k4_raw_wrappers_refuse_a_tracked_input(cuda):
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.fm_interaction.fm_interaction import fm_interaction
+
+    q = torch.randn((1, 2, 16, 16), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        flash_attention(q, q, q)
+    emb = torch.randn((4, 3, 2), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fm_interaction(emb)
+
+
+def _on_cpu(card, host):
+    """``host`` (a CPU trainer) starting from ``card``'s initial params (a
+    generator on the card draws other numbers than one on the CPU)."""
+    from repro_torch.tree import tree_map
+
+    host.params = tree_map(lambda t: t.cpu(), card.params)
+    host.opt_state = host.opt.init(host.params)
+    return host
+
+
+def test_smoke_training_on_card_counts_launches_and_resumes(cuda, tmp_path):
+    """qwen3 SMOKE at head size 64 (d 384, 6 heads) trains on the card with
+    remat and microbatch 2: K3 twice forward (the step, the remat recompute)
+    and once backward a layer and microbatch; the losses within 1e-2 of the
+    same trainer on the CPU (bf16 in another order); a resume from the
+    midpoint checkpoint equal to the uninterrupted run at rtol 1e-6."""
+    import dataclasses
+
+    from repro_torch.configs.qwen3_0p6b import SMOKE
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch.train import build_trainer
+
+    cfg = dataclasses.replace(SMOKE, d_model=384, n_heads=6, n_kv_heads=3, remat=True)
+    kw = dict(batch=2, seq=96, steps=4, microbatch=2, cfg=cfg)
+    tr = build_trainer("qwen3-0.6b", ckpt_dir=str(tmp_path / "a"), torch_device=cuda, **kw)
+    host = _on_cpu(tr, build_trainer("qwen3-0.6b", torch_device="cpu", **kw))
+    fwd, bwd = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    tr.run(4)
+    per_step = cfg.n_layers * 2
+    assert fa.flash_attention.launches - fwd == 4 * per_step * 2
+    assert fa.flash_attention_bwd.launches - bwd == 4 * per_step
+    host.run(4)
+    np.testing.assert_allclose([h["loss"] for h in tr.history],
+                               [h["loss"] for h in host.history], rtol=1e-2)
+    again = build_trainer("qwen3-0.6b", ckpt_dir=str(tmp_path / "a"), torch_device=cuda, **kw)
+    state, extra, _ = again.ckpt.restore({"params": again.params, "opt": again.opt_state},
+                                         step=2)
+    again.params, again.opt_state, again.step = state["params"], state["opt"], 2
+    again.data.restore(extra["data"])
+    again.run(2)
+    np.testing.assert_allclose([h["loss"] for h in again.history],
+                               [h["loss"] for h in tr.history][2:], rtol=1e-6)
+
+
+def test_fm_training_on_card_takes_k4_both_ways(cuda):
+    from repro_torch.kernels.fm_interaction import fm_interaction as fm_mod
+    from repro_torch.launch.train import build_trainer
+
+    tr = build_trainer("fm", batch=4096, steps=3, torch_device=cuda)
+    host = _on_cpu(tr, build_trainer("fm", batch=4096, steps=3, torch_device="cpu"))
+    fwd, bwd = fm_mod.fm_interaction.launches, fm_mod.fm_interaction_bwd.launches
+    tr.run(3)
+    assert (fm_mod.fm_interaction.launches - fwd, fm_mod.fm_interaction_bwd.launches - bwd) == (3, 3)
+    host.run(3)
+    np.testing.assert_allclose([h["loss"] for h in tr.history],
+                               [h["loss"] for h in host.history], rtol=1e-5)

@@ -158,7 +158,7 @@ def test_config_and_init_match_reference(arch):
     rmod, pmod = ARCHS[arch]
     for attr in ("CONFIG", "SMOKE") + (("CONFIG_EP",) if arch == "qwen2-moe" else ()):
         mine, ref = getattr(pmod, attr), getattr(rmod, attr)
-        fields = dataclasses.asdict(mine)  # the port has no training fields (z_loss)
+        fields = dataclasses.asdict(mine)  # every port field equals the reference's
         assert fields == {k: v for k, v in dataclasses.asdict(ref).items() if k in fields}
         assert mine.n_experts_padded == ref.n_experts_padded
         assert (mine.n_params(), mine.n_active_params()) == \
