@@ -19,7 +19,7 @@ Phases, one JSON object per line:
 
 1. ``env``     — the card (``nvidia-smi`` name and power limit), torch, CUDA.
 2. ``build``   — compiles every kernel of ``src/repro_torch/csrc`` with nvcc
-                 for sm_90a (seven libraries, one nvcc per source, all started
+                 for sm_90a (eight libraries, one nvcc per source, all started
                  together); registers and spills from each ptxas log (none
                  allowed in K1's, K2's or the scan's).
 3. ``index``   — the graph, the host EMC DBIndex build and the device plan,
@@ -168,17 +168,23 @@ Phases, one JSON object per line:
     the plain forward (K1's plain version in the kernel's place) within
     ``GNN_TOL`` * (|plain| + rms(plain)) in every element, timed beside it,
     one forward profiled, K1's bound summed over one more forward's
-    launches; TF32 off.  With it the k-hop ``khop_aggregate``
+    launches, and ``index_add_`` timed on each of those launches' gathered
+    rows and segment ids (K1's library yardstick; none for GAT's max
+    launches); TF32 off.  With it the k-hop ``khop_aggregate``
     result of 7c.
-15b'. ``kernel:flash_attention_bwd`` — K3's backward kernel
-    (``csrc/flash_attention_bwd.cu``: row statistics, dK/dV, dQ) against
+15b'. ``kernel:flash_attention_bwd`` — K3's backward kernels (row
+    statistics, dK/dV, dQ) on their two routes: bf16 with D 64 / 128 on
+    the tensor cores (``csrc/flash_attention_bwd_sm90.cu``; its ptxas log
+    checked for 0 spill bytes and setmaxnreg honoured, its SASS for HGMMA),
+    the rest on the CUDA cores (``csrc/flash_attention_bwd.cu``), against
     autograd through ``flash_torch`` at qwen3-0.6b's and qwen2-moe-a2.7b's
     training shapes (one microbatch: (4, 16, 8, 4096, 64) and (4, 16, 16,
-    2048, 128), bf16: a relative L2 error of at most 2e-2 for each of dq,
-    dk, dv) and at (2, 4, 2, 1000, 128) float32 (each element within 1e-4
-    (|plain| + rms(plain))); bitwise across two launches; timed beside the
-    plain backward, SDPA's backward through ``torch.autograd`` and the
-    bound (five causal products at the bf16 or float32 peak).
+    2048, 128), bf16, both checked to take ``sm90``: a relative L2 error
+    of at most 2e-2 for each of dq, dk, dv) and at (2, 4, 2, 1000, 128)
+    float32 (``simt``; each element within 1e-4 (|plain| + rms(plain)));
+    bitwise across two launches; timed beside the plain backward, SDPA's
+    backward through ``torch.autograd`` and the bound (five causal products
+    at the bf16 or float32 peak).
     ``kernel:fm_interaction_bwd`` — K4's backward at B = 65,536, F 39, K 10,
     within 1e-5 of |g| (sum_f |e| + |e|), bitwise across launches; timed
     beside the plain version and its bytes bound.
@@ -2438,16 +2444,24 @@ def gnn_case(arch: str, shape: str, args, dev) -> dict:
     prof = device_profile(forward, dev, ms, match=("segment_reduce_kernel",))
     traced = prof["matched"]["segment_reduce_kernel"]["launches"]
     check(traced == launches, f"{arch} at {shape}: the profiled forward ran K1 {traced} times")
-    # K1's bound in one more forward: each launch's inputs as it gets them
-    real, k1_bounds = gnn.segment_reduce_multi, []
+    # K1's bound in one more forward: each launch's inputs as it gets them;
+    # then index_add_ on each sum launch's gathered rows and segment ids
+    real, k1_bounds, k1_calls = gnn.segment_reduce_multi, [], []
 
     def bounded(tp, values, monoids):
         got = real(tp, values, monoids)
         k1_bounds.append(k1_bound(tp, values, got)[0])
+        k1_calls.append((tp, values, monoids, got))
         return got
 
     with mock.patch.object(gnn, "segment_reduce_multi", bounded):
         forward()
+    index_add_ms = []
+    while k1_calls:
+        index_add_ms.append(k1_index_add_ms(*k1_calls.pop(0), dev, max(3, args.reps // 4)))
+        torch.cuda.empty_cache()
+    k1_device_ms = prof["matched"]["segment_reduce_kernel"]["device_ms"]
+    lib_ms = None if None in index_add_ms else sum(index_add_ms)
     n_params = sum(int(t.numel()) for t in _leaves(params))
     del out, again, plain, diff, mag, x, extra
     return {
@@ -2461,11 +2475,41 @@ def gnn_case(arch: str, shape: str, args, dev) -> dict:
         "share_of_tol": worst,
         "k1_launches_per_forward": launches, "bitwise_repeat": True,
         "device_ms": prof["device_ms"], "device_idle_share": prof["device_idle_share"],
-        "k1_device_ms": prof["matched"]["segment_reduce_kernel"]["device_ms"],
+        "k1_device_ms": k1_device_ms,
         "k1_by_launch_ms": prof["matched"]["segment_reduce_kernel"]["by_launch_ms"],
         "k1_bound_ms": sum(k1_bounds), "k1_bound_by_launch_ms": k1_bounds,
+        "k1_index_add_ms": lib_ms, "k1_index_add_ms_by_launch": index_add_ms,
+        "k1_ms_over_index_add": k1_device_ms / lib_ms if lib_ms else None,
         "top_device_events": prof["top_device_events"][:5],
     }, both
+
+
+def k1_index_add_ms(tp, values, monoids, got, dev, reps):
+    """The library yardstick of one K1 launch of a GNN forward: the time of
+    ``index_add_`` over the launch's gathered rows (pre-gathered, padding
+    rows zeroed, outside the timing) and segment ids, checked against K1's
+    result ``got`` within ``GNN_TOL`` * (|got| + rms(got)) (float32 sums in
+    another order); None for a launch with min or max columns, which no
+    one call computes."""
+    import torch
+
+    n_sum, n_min, n_max = monoids
+    if n_min or n_max:
+        return None
+    sid = tp.seg_tiles.reshape(-1)
+    ok = sid >= 0
+    sink = tp.num_out_tiles * tp.ts
+    sid_l = torch.where(ok, sid, sink).long()
+    rows = values.float().index_select(0, tp.gather_padded.reshape(-1).long())
+    rows.masked_fill_(~ok[:, None], 0.0)
+    out = torch.zeros((sink + 1, values.shape[1]), dtype=torch.float32, device=dev)
+    lib = out.index_add_(0, sid_l, rows)[: got.shape[0]]
+    rms = float(got.pow(2).mean().sqrt())
+    worst = float(((lib - got).abs() / (GNN_TOL * (got.abs() + rms))).max())
+    check(worst <= 1.0, f"index_add_ disagrees with K1 ({worst} of the bound)")
+    ms = time_ms(lambda: out.index_add_(0, sid_l, rows), dev, reps)
+    del rows, out, lib, sid_l
+    return ms
 
 
 def _leaves(tree):
@@ -2544,6 +2588,10 @@ TRAIN_MOE = dict(arch="qwen2-moe-a2.7b", depth=2, batch=4, seq=2048, steps=2)
 K3_BWD_SHAPES = (("qwen3_train", 4, 16, 8, 4096, 64, "bfloat16"),
                  ("moe_train", 4, 16, 16, 2048, 128, "bfloat16"),
                  ("float32", 2, 4, 2, 1000, 128, "float32"))
+# the route each dtype of K3_BWD_SHAPES must take, and each route's source
+K3_BWD_ROUTE = {"bfloat16": "sm90", "float32": "simt"}
+K3_BWD_SOURCE = {"sm90": "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
+                 "simt": "src/repro_torch/csrc/flash_attention_bwd.cu"}
 K4_BWD_SHAPE = (65536, 39, 10)  # train_batch's B, the FM's F and K
 # gates: float32 each element within 1e-4 (|plain| + rms(plain)); bf16 a
 # relative L2 error of at most 2e-2 a tensor (the kernel's p is exact where
@@ -2585,6 +2633,7 @@ def kernel_flash_attention_bwd(dev, reps, seed):
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash_attention as fa
 
+    report = k3_bwd_build_report()
     gen = torch.Generator(device=dev).manual_seed(seed + 30)
     per_shape, worst = {}, 0.0
     for name, b, hq, hkv, s, d, dt in K3_BWD_SHAPES:
@@ -2593,8 +2642,14 @@ def kernel_flash_attention_bwd(dev, reps, seed):
                    for h in (hq, hkv, hkv))
         do = torch.randn((b, hq, s, d), generator=gen, device=dev).to(dtype)
         o = fa.flash_attention(q, k, v)
+        path = fa.bwd_route(dtype, d)
+        check(path == K3_BWD_ROUTE[dt], f"K3 bwd {name}: routed to {path}, not "
+              f"{K3_BWD_ROUTE[dt]}")
+        before = dict(fa.flash_attention_bwd.launches_by_route)
         got = fa.flash_attention_bwd(q, k, v, o, do)
         again = fa.flash_attention_bwd(q, k, v, o, do)
+        check(fa.flash_attention_bwd.launches_by_route == {**before, path: before[path] + 2},
+              f"K3 bwd {name}: the two calls did not take the {path} route")
         plain = fa.flash_attention_bwd_plain(q, k, v, do)
         torch.cuda.synchronize(dev)
         errs = {}
@@ -2622,8 +2677,8 @@ def kernel_flash_attention_bwd(dev, reps, seed):
         ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, do), dev, reps)
         lib_ms = time_ms(lib, dev, reps)
         per_shape[name] = {
-            "b": b, "hq": hq, "hkv": hkv, "s": s, "d": d, "dtype": dt,
-            "errors": errs, "max_abs_err": float(max((x.float() - w.float()).abs().max()
+            "b": b, "hq": hq, "hkv": hkv, "s": s, "d": d, "dtype": dt, "route": path,
+            "source": K3_BWD_SOURCE[path], "errors": errs, "max_abs_err": float(max((x.float() - w.float()).abs().max()
                                                      for x, w in zip(got, plain))),
             "library_rel_l2_vs_plain": lib_err,
             "ms": ms, "plain_ms": time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, do),
@@ -2634,7 +2689,28 @@ def kernel_flash_attention_bwd(dev, reps, seed):
         }
         del q, k, v, o, do, got, again, plain, qg, kg, vg, sdpa
         torch.cuda.empty_cache()
-    return per_shape, worst, build.ptxas_report("flash_attention_bwd")
+    return per_shape, worst, report
+
+
+def k3_bwd_build_report():
+    """What the builds of K3's two backward routes say: the tensor-core
+    route's registers and spills per kernel from its ptxas log (0 spill
+    bytes, setmaxnreg honoured, checked) and its count of HGMMA (wgmma)
+    instructions in the SASS (checked > 0); the CUDA-core route's ptxas
+    report."""
+    from repro_torch.kernels import build
+
+    rep = build.ptxas_report("flash_attention_bwd_sm90")
+    check(len(rep["functions"]) == 6, "K3 bwd sm90: the ptxas log does not list the "
+          f"three kernels at D = 64 and 128 ({list(rep['functions'])})")
+    for fn, r in rep["functions"].items():
+        check(r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0,
+              f"K3 bwd sm90: {fn} spills ({r})")
+    check(rep["setmaxnreg_ignored"] == 0, "K3 bwd sm90: ptxas ignored setmaxnreg")
+    hgmma = build.sass("flash_attention_bwd_sm90").count("HGMMA")
+    check(hgmma > 0, "K3 bwd sm90: no HGMMA in the SASS")
+    return {"sm90": {**rep, "sass_hgmma": hgmma},
+            "simt": build.ptxas_report("flash_attention_bwd")}
 
 
 def kernel_fm_interaction_bwd(dev, reps, seed):
@@ -2675,12 +2751,22 @@ def _train_counts():
 
 
 def _reset_counts() -> None:
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
     for fn in _train_counts().values():
         fn.launches = 0
+    fa.flash_attention_bwd.launches_by_route.update(sm90=0, simt=0)
 
 
 def _read_counts() -> dict:
-    return {name: fn.launches for name, fn in _train_counts().items()}
+    """The counters of ``_train_counts``, and K3's backward calls by route
+    as ``flash_attention_bwd_sm90`` and ``flash_attention_bwd_simt``."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    counts = {name: fn.launches for name, fn in _train_counts().items()}
+    for route, n in fa.flash_attention_bwd.launches_by_route.items():
+        counts[f"flash_attention_bwd_{route}"] = n
+    return counts
 
 
 def _first_step(loss_fn, params, stream, microbatch, dev):
@@ -2759,8 +2845,9 @@ def train_lm(args, dev) -> dict:
         k_loss, k_gnorm, k_grads = _first_step(lambda q, b: T.loss_fn(q, b, cfg), tr.params,
                                                stream(), p["microbatch"], dev)
         by_hand_counts = _read_counts()
-        check(by_hand_counts["flash_attention_bwd"] == cfg.n_layers * p["microbatch"],
-              f"the step by hand made {by_hand_counts['flash_attention_bwd']} K3 backward calls")
+        check(by_hand_counts["flash_attention_bwd"] == cfg.n_layers * p["microbatch"]
+              == by_hand_counts["flash_attention_bwd_sm90"],
+              f"the step by hand made {by_hand_counts} K3 backward calls (all sm90 expected)")
         kernel_qkv = [{w: lp[w] for w in ("wq", "wk", "wv")} for lp in k_grads["layers"]]
         del k_grads
         p_loss, p_gnorm, p_grads = _first_step(
@@ -2800,9 +2887,10 @@ def train_lm(args, dev) -> dict:
         steps = p["steps"]
         want_fwd = steps * cfg.n_layers * p["microbatch"] * (2 if cfg.remat else 1)
         want_bwd = steps * cfg.n_layers * p["microbatch"]
-        check(counts["flash_attention"] == want_fwd and counts["flash_attention_bwd"] == want_bwd,
+        check(counts["flash_attention"] == want_fwd and counts["flash_attention_bwd"] == want_bwd
+              and counts["flash_attention_bwd_sm90"] == want_bwd,
               f"K3 launches in {steps} steps: {counts}, expected {want_fwd} forward and "
-              f"{want_bwd} backward")
+              f"{want_bwd} backward, all on the sm90 route")
         losses = [h["loss"] for h in tr.history]
         check(all(math.isfinite(x) for x in losses), f"losses {losses}")
         first = tr.history[0]
@@ -2841,7 +2929,8 @@ def train_lm(args, dev) -> dict:
             "tokens_per_s": tokens / step_ms * 1e3,
             "peak_memory_bytes": peak,
             "k3_launches_per_step": {"forward": counts["flash_attention"] / steps,
-                                     "backward": counts["flash_attention_bwd"] / steps},
+                                     "backward": counts["flash_attention_bwd"] / steps,
+                                     "backward_sm90": counts["flash_attention_bwd_sm90"] / steps},
             "checkpoint_save_s": saves[0], "checkpoint_restore_s": restore_s,
             "resumed_at": resumed_at, "resumed_losses": resumed,
             "step1_vs_plain": {"loss": k_loss, "plain_loss": p_loss, "gnorm": k_gnorm,
@@ -2964,8 +3053,9 @@ def train_moe(args, dev) -> dict:
     steps = p["steps"]
     want_fwd = steps * cfg.n_layers * (2 if cfg.remat else 1)
     check(counts["flash_attention"] == want_fwd
-          and counts["flash_attention_bwd"] == steps * cfg.n_layers,
-          f"K3 launches in {steps} MoE steps: {counts}")
+          and counts["flash_attention_bwd"] == steps * cfg.n_layers
+          == counts["flash_attention_bwd_sm90"],
+          f"K3 launches in {steps} MoE steps: {counts} (backward all sm90 expected)")
     losses = [h["loss"] for h in tr.history]
     gnorms = [h["gnorm"] for h in tr.history]
     check(all(math.isfinite(x) for x in losses + gnorms), f"MoE losses {losses}, gnorms {gnorms}")
@@ -2981,7 +3071,8 @@ def train_moe(args, dev) -> dict:
             "step_ms": [h["dt"] * 1e3 for h in tr.history], "step_ms_median": step_ms,
             "tokens_per_s": p["batch"] * p["seq"] / step_ms * 1e3,
             "k3_launches_per_step": {"forward": counts["flash_attention"] / steps,
-                                     "backward": counts["flash_attention_bwd"] / steps}
+                                     "backward": counts["flash_attention_bwd"] / steps,
+                                     "backward_sm90": counts["flash_attention_bwd_sm90"] / steps}
             }, counts
 
 
@@ -2993,11 +3084,11 @@ def train_phase(args, dev) -> tuple:
 
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    out, counts = {}, {name: 0 for name in _train_counts()}
+    out, counts = {}, {}
     for name, fn in (("qwen3", train_lm), ("fm", train_fm), ("moe", train_moe)):
         out[name], c = fn(args, dev)
         for k, n in c.items():
-            counts[k] += n
+            counts[k] = counts.get(k, 0) + n
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t
     return out, counts
@@ -3869,9 +3960,9 @@ def run(args, dev) -> None:
     # the training path: its backward kernels checked first, then the
     # trainers, the card's memory freed on either side
     torch.cuda.empty_cache()
-    k3b, k3b_err, k3b_ptxas = kernel_flash_attention_bwd(dev, args.reps, args.seed)
+    k3b, k3b_err, k3b_build = kernel_flash_attention_bwd(dev, args.reps, args.seed)
     emit({"phase": "kernel:flash_attention_bwd", "check": "ok", "max_abs_err": k3b_err,
-          "ptxas": k3b_ptxas, "per_shape": k3b})
+          "build": k3b_build, "per_shape": k3b})
     k4b = kernel_fm_interaction_bwd(dev, args.reps, args.seed)
     emit({"phase": "kernel:fm_interaction_bwd", "check": "ok", **k4b})
     trained, train_counts = train_phase(args, dev)
@@ -3879,9 +3970,10 @@ def run(args, dev) -> None:
     torch.cuda.empty_cache()
     launches["flash_attention"] += train_counts["flash_attention"]
     launches["fm_interaction"] += train_counts["fm_interaction"]
-    for name in ("flash_attention_bwd", "fm_interaction_bwd"):
+    for name in ("flash_attention_bwd", "fm_interaction_bwd", "flash_attention_bwd_sm90"):
         launches[name] = train_counts[name]
         check(launches[name] > 0, f"the training path launched no {name}")
+    launches["flash_attention_bwd_simt"] = train_counts["flash_attention_bwd_simt"]
     # after the timed serving paths, before K2's 2 M-vertex graph: a graph
     # and a generator of its own
     cluster = cluster_phase(args, dev)
@@ -3952,16 +4044,21 @@ def run(args, dev) -> None:
          "library": "none: no single PyTorch call computes the FM term",
          "check": "ok"},
         {"name": "flash_attention_bwd", "route": "cuda",
-         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+         "source": K3_BWD_SOURCE["sm90"],
+         "sources": {"sm90 (bf16, D 64 / 128)": K3_BWD_SOURCE["sm90"],
+                     "simt (the rest)": K3_BWD_SOURCE["simt"]},
          "replaces": ("src/repro/kernels/flash_attention/flash_attention.py:76 (the TPU "
                       "kernel has no backward; the reference trains through flash_jnp "
                       "autodiff, src/repro/models/attention.py:43)"),
-         "launches": launches["flash_attention_bwd"], "max_abs_err": k3b_err,
+         "launches": launches["flash_attention_bwd"],
+         "launches_by_route": {"sm90": launches["flash_attention_bwd_sm90"],
+                               "simt": launches["flash_attention_bwd_simt"]},
+         "max_abs_err": k3b_err,
          **{key: k3b["qwen3_train"][key] for key in
-            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "route")},
          **{f"{form}_form": {key: k3b[form][key] for key in
                              ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                              "max_abs_err", "errors")}
+                              "max_abs_err", "errors", "route", "source")}
             for form in ("moe_train", "float32")},
          "check": "ok"},
         {"name": "fm_interaction_bwd", "route": "cuda",

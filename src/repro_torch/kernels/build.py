@@ -31,7 +31,8 @@ NVCC_FLAGS = (
 )
 #: every kernel source the port ships
 KERNELS = ("segment_sum", "bitset_expand", "flash_attention", "flash_attention_sm90",
-           "flash_attention_bwd", "fm_interaction", "inherit_scan")
+           "flash_attention_bwd", "flash_attention_bwd_sm90", "fm_interaction",
+           "inherit_scan")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # serializes first uses: two threads (a service's flusher and its updater)

@@ -22,12 +22,24 @@ chunked streaming-softmax
 tensors on the CPU.  The plain version is also the kernels' oracle on the
 card.
 
-The backward is ``csrc/flash_attention_bwd.cu`` (every dtype and D above,
-on the CUDA cores): :func:`flash_attention_bwd` launches it for CUDA
-tensors and takes :func:`flash_attention_bwd_plain` (autograd through
-``flash_torch``) for CPU tensors.  :class:`FlashAttentionFn` joins the two
-kernels for autograd; :func:`flash_attention_train` applies it, and
-training on the card reaches it through ``models.attention.attention``.
+The backward routes by the same table (:func:`bwd_route`):
+
+=============  ===============  ==========================================
+dtype          head size D      kernel (route)
+=============  ===============  ==========================================
+bfloat16       64, 128          ``csrc/flash_attention_bwd_sm90.cu``
+                                (``sm90``): wgmma, TMA rings, no atomics
+bfloat16       16, 32           ``csrc/flash_attention_bwd.cu`` (``simt``):
+                                CUDA cores
+float32        16, 32, 64, 128  ``csrc/flash_attention_bwd.cu`` (``simt``)
+=============  ===============  ==========================================
+
+:func:`flash_attention_bwd` launches the route's three kernels (stats,
+dK/dV, dQ) for CUDA tensors, with no retry on the other route, and takes
+:func:`flash_attention_bwd_plain` (autograd through ``flash_torch``) for
+CPU tensors.  :class:`FlashAttentionFn` joins forward and backward for
+autograd; :func:`flash_attention_train` applies it, and training on the
+card reaches it through ``models.attention.attention``.
 """
 
 from __future__ import annotations
@@ -72,10 +84,22 @@ def _lib(name: str):
     return fn
 
 
-def _bwd_lib():
-    fn = _build.load("flash_attention_bwd").flash_attention_bwd
+def bwd_route(dtype: torch.dtype, d: int) -> str:
+    """The backward kernel a CUDA call with this dtype and head size
+    launches: ``"sm90"`` or ``"simt"`` (the forward's table).  Raises for
+    what neither kernel takes."""
+    return route(dtype, d)
+
+
+def _bwd_lib(name: str):
+    if name == "sm90":
+        fn = _build.load("flash_attention_bwd_sm90").flash_attention_bwd_sm90
+        argtypes = [_P] * 10 + [_I] * 6 + [ctypes.c_float, _P]
+    else:
+        fn = _build.load("flash_attention_bwd").flash_attention_bwd
+        argtypes = [_P] * 10 + [_I] * 7 + [ctypes.c_float, _P]
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 10 + [_I] * 7 + [ctypes.c_float, _P]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -157,10 +181,11 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True):
     """(dq, dk, dv) of :func:`flash_attention` at q, k, v, given its output
     ``o`` and the output's gradient ``do`` (both [B, Hq, S, D] in q's
     dtype), each in its input's shape and dtype.  CPU tensors take
-    :func:`flash_attention_bwd_plain`; CUDA tensors launch the backward
-    kernel's three passes (D in :data:`HEAD_DIMS`, float32 or bf16), and
-    anything it does not take raises.  Every call on the card adds one to
-    ``flash_attention_bwd.launches``."""
+    :func:`flash_attention_bwd_plain`; CUDA tensors launch the three
+    passes of the kernel :func:`bwd_route` names (D in :data:`HEAD_DIMS`,
+    float32 or bf16), and anything it does not take raises.  Every call on
+    the card adds one to ``flash_attention_bwd.launches`` and to its
+    route's ``flash_attention_bwd.launches_by_route``."""
     b, hq, hkv, s, d = _check_qkv(q, k, v)
     for name, t in (("o", o), ("do", do)):
         _build.check_tensor(t, q.dtype, 4, name, q.device)
@@ -168,29 +193,38 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True):
             raise ValueError(f"{name} is {tuple(t.shape)}, q {tuple(q.shape)}")
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, do, causal=causal)
-    route(q.dtype, d)  # raises for what no kernel takes
+    name = bwd_route(q.dtype, d)
     if b * hq > 65535:
         raise ValueError(f"B * Hq = {b * hq} exceeds the grid's 65535 rows")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if s == 0 or b == 0:
         return dq, dk, dv
-    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    # lse and delta scratch: the sm90 kernels read whole 64-row tiles of it
+    rows = -(-s // 64) * 64 if name == "sm90" else s
+    lse = torch.empty((b, hq, rows), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
-    fn = _bwd_lib()
+    fn = _bwd_lib(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), _DTYPE_CODE[q.dtype], b, hq, hkv, s, d, int(causal),
-                 d ** -0.5, stream)
-    _build.check(err, "flash_attention_bwd")
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+                delta.data_ptr())
+        if name == "sm90":
+            err = fn(*ptrs, b, hq, hkv, s, d, int(causal), d ** -0.5, stream)
+        else:
+            err = fn(*ptrs, _DTYPE_CODE[q.dtype], b, hq, hkv, s, d, int(causal),
+                     d ** -0.5, stream)
+    _build.check(err, f"flash_attention_bwd ({name})")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_route[name] += 1
     return dq, dk, dv
 
 
-#: backward calls on the card so far, each three kernel launches (stats,
-#: dK/dV, dQ); a plain count, callers may reset it to 0
+#: backward calls on the card so far, in all and by route, each three
+#: kernel launches (stats, dK/dV, dQ); plain counts, callers may reset them
+#: to 0
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_route = {"sm90": 0, "simt": 0}
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -957,14 +957,22 @@ K3_BWD_CASES = [(2, 4, 2, 256, 64, True), (1, 8, 8, 130, 32, True), (2, 2, 1, 77
                 (2, 4, 2, 333, 64, False), (1, 8, 1, 200, 32, False)]
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,hq,hkv,s,d,causal", K3_BWD_CASES)
-def test_flash_attention_bwd_kernel_matches_plain(cuda, monkeypatch, dtype, b, hq, hkv, s,
-                                                  d, causal):
-    """K3's backward kernel against autograd through flash_torch on the same
-    q, k, v, o and dO: float32 within 1e-4 (|plain| + rms(plain)) in every
-    element; bf16 a relative L2 error of at most 2e-2 a tensor; bitwise
-    across two launches; one count a call."""
+# the tensor-core backward's edges (bf16, D 64 and 128): groups of 1, 2
+# and 8 query heads a kv head, S around the 64-row query tiles, the 64-key
+# tiles of the dQ pass and the 128-key tiles of the dK/dV pass, and one
+# long ragged S; then non-causal
+K3_BWD_SM90_CASES = ([(1, 2 * g, 2, s, d, True) for d in (64, 128) for g in (1, 2, 8)
+                      for s in (1, 63, 64, 65, 127, 128, 129, 4097)]
+                     + [(2, 4, 2, s, d, False) for d in (64, 128) for s in (65, 1000)])
+
+
+def _k3_bwd_check(cuda, monkeypatch, dtype, b, hq, hkv, s, d, causal):
+    """K3's backward on the card against autograd through flash_torch on
+    the same q, k, v, o and dO: float32 within 1e-4 (|plain| + rms(plain))
+    in every element; bf16 a relative L2 error of at most 2e-2 a tensor;
+    bitwise across two launches; one count a call, on the route
+    ``bwd_route`` names.  On the sm90 route the simt library may not be
+    reached at all."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
 
     g = torch.Generator(device=cuda).manual_seed(s + d + hq)
@@ -973,13 +981,21 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, monkeypatch, dtype, b, h
     do = torch.randn((b, hq, s, d), generator=g, device=cuda).to(dtype)
     o = fa.flash_attention(q, k, v, causal=causal)
     want = fa.flash_attention_bwd_plain(q, k, v, do, causal=causal)
+    path = fa.bwd_route(dtype, d)
+    assert path == ("sm90" if dtype == torch.bfloat16 and d in (64, 128) else "simt")
     monkeypatch.setattr(fa, "flash_attention_bwd_plain", _fail)
     monkeypatch.setattr(fa, "flash_torch", _fail)
+    if path == "sm90":
+        lib = fa._bwd_lib
+        monkeypatch.setattr(fa, "_bwd_lib", lambda name: _fail() if name == "simt" else lib(name))
     before = fa.flash_attention_bwd.launches
+    before_route = dict(fa.flash_attention_bwd.launches_by_route)
     got = fa.flash_attention_bwd(q, k, v, o, do, causal=causal)
     again = fa.flash_attention_bwd(q, k, v, o, do, causal=causal)
     torch.cuda.synchronize()
     assert fa.flash_attention_bwd.launches == before + 2
+    assert fa.flash_attention_bwd.launches_by_route == {
+        **before_route, path: before_route[path] + 2}
     for x, y, w, name in zip(got, again, want, ("dq", "dk", "dv")):
         assert x.dtype == dtype and x.shape == w.shape, name
         assert torch.equal(x, y), name
@@ -992,6 +1008,18 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, monkeypatch, dtype, b, h
             assert _f32_close(x, w), name
         else:
             assert _rel_l2(x, w) <= 2e-2, (name, _rel_l2(x, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal", K3_BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain(cuda, monkeypatch, dtype, b, hq, hkv, s,
+                                                  d, causal):
+    _k3_bwd_check(cuda, monkeypatch, dtype, b, hq, hkv, s, d, causal)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal", K3_BWD_SM90_CASES)
+def test_flash_attention_bwd_sm90_matches_plain(cuda, monkeypatch, b, hq, hkv, s, d, causal):
+    _k3_bwd_check(cuda, monkeypatch, torch.bfloat16, b, hq, hkv, s, d, causal)
 
 
 def test_attention_training_on_card_takes_both_kernels(cuda, monkeypatch):
