@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one GPU and check them.
 
-    python3 chip_smoke.py    # full width: ER n=60k, degree 10, KHop(2),
+    python3 chip_smoke.py    # full width: ER n=45k, degree 10, KHop(2),
                              # served by the window service with a WAL;
                              # the topological window on a 60k DAG;
                              # qwen3-0.6b, minitron-8b, qwen2-moe-a2.7b
                              # and grok-1-314b (depth 2) serving; the
                              # Criteo-shaped FM; GCN, GAT, GraphSAGE and
-                             # MeshGraphNet at full width; training
+                             # MeshGraphNet at full width, served and
+                             # trained (K1 as its own backward); the
+                             # paper's gwq data plane at LiveJournal
+                             # scale; training
                              # qwen3-0.6b, the FM and qwen2-moe-a2.7b
                              # (depth 2) through build_trainer, with K3's
                              # and K4's backward kernels; a two-follower
@@ -172,6 +175,40 @@ Phases, one JSON object per line:
     rows and segment ids (K1's library yardstick; none for GAT's max
     launches); TF32 off.  With it the k-hop ``khop_aggregate``
     result of 7c.
+15a'. ``train_gnn`` — each case of 15a trained right after it is served,
+    on its graph, ``EdgePlan``, params and features, through
+    ``launch/steps.build_gnn_train`` at world 1 (the reference's
+    ``gnn_loss``, AdamW on its cosine schedule): labels with Cora's and
+    ogbn-products' training-split sizes (140, 196,615 seeded nodes) or the
+    sampled subgraph's 1,024 seeds, MeshGraphNet's node targets.  The
+    source-sorted layout built (host s, bytes); step 1 on the kernel route
+    with K1's forward and backward launches counted (reset just before,
+    read just after; GCN and SAGE 1 a layer forward and 1 backward for the
+    second layer, GAT 3 and 4 a layer, MGN 1 and 2 a step) against the
+    plain route (K1's sums forward, so that both routes differentiate at the
+    same point; backward, the gradient of K1's plain version under PyTorch's
+    autograd, chunked as 15a's, and ``index_select``'s own backward for
+    the gathers): loss within 1e-5, gnorm within 1e-4, each gradient
+    element within 1e-4 (|plain| + rms(plain)); the free plain route (K1's
+    plain version forward too) read beside, its loss within 1e-5; two
+    step 1s from one state bitwise
+    equal (loss, gradients, params, moments); gcn-cora's step over a
+    one-device ``DeviceMesh`` (NCCL) bitwise the one-card step; 5 steps
+    timed (median of steps 2-5, nodes and edges a second, peak memory);
+    one step profiled: K1 forward and backward, cuBLAS, elementwise and
+    the rest of the device time, the idle share, and no kernel that adds
+    with atomics (``index_add_``, the backward of ``x[idx]``,
+    ``scatter_add_``).
+    ``kernel:segment_sum_bwd`` — K1 as its own backward at ogbn-products'
+    layer 2 (C = 128, the source-sorted layout's ``by_src_dst``): bitwise
+    across two launches, within ``GNN_TOL`` of its plain version; timed
+    beside it, ``index_add_`` on its gathered rows and its bound.
+    ``gwq`` — ``launch/steps.build_gwq_step`` at ``query_lj``'s full dims
+    (n 3,997,962, nb 2,000,000, m 53,437,500, l 6,000,000) on one card,
+    on a seeded plan with integer attributes: 2 K1 launches, bitwise
+    NumPy's int64 sums; the host plan s, each pass's K1 ms against its
+    bound and ``index_add_``, the step ms; the shapes not run on the card
+    named in ``reduced``.
 15b'. ``kernel:flash_attention_bwd`` — K3's backward kernels (row
     statistics, dK/dV, dQ) on their two routes: bf16 with D 64 / 128 on
     the tensor cores (``csrc/flash_attention_bwd_sm90.cu``; its ptxas log
@@ -312,8 +349,13 @@ TOL = 1e-5
 _LINES = []
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
-    line = json.dumps(obj)
+    """Print ``obj`` as one JSON line, with ``t_s``, the seconds since the
+    script started."""
+    line = json.dumps({**obj, "t_s": time.perf_counter() - _T0})
     _LINES.append(line)
     print(line, flush=True)
 
@@ -1094,10 +1136,17 @@ def serve_window(sess, state, policy, args, rng, dev):
     cvals = rng.integers(0, 100, (4, n)).astype(np.float64)
     asvc = AsyncWindowService(sess, bucket=SERVE_BUCKET, wal=SegmentedWriteAheadLog(
         wal_dir, obs=reg), wal_digests=True, policy=policy, obs=reg, tracer=tracer)
-    tickets, stop = [], threading.Event()
+    tickets, stop, client_errors = [], threading.Event(), []
     crng = np.random.default_rng(args.seed + 5)
 
     def client():
+        try:
+            client_reads()
+        except Exception as exc:  # reported and failed by the phase below
+            client_errors.append(repr(exc))
+            raise
+
+    def client_reads():
         i = 0
         while not stop.is_set():
             si, v, j = int(crng.integers(len(specs))), int(crng.integers(n)), i % len(cvals)
@@ -1135,6 +1184,7 @@ def serve_window(sess, state, policy, args, rng, dev):
         th.join(timeout=60)
         asvc.stop()
     check(not th.is_alive(), "the client thread did not stop")
+    check(not client_errors, f"the client thread failed: {client_errors}")
     made, nflush = segment_sum_tiled.launches - k1, asvc.flushes - flushes0
     lat = {}
     for t, j in tickets:
@@ -1875,15 +1925,16 @@ def fm_close(got, want, emb):
 PROFILE_PAD_LAUNCHES = 2000
 
 
-def device_profile(fn, dev, unprofiled_ms, match=()):
+def device_profile(fn, dev, unprofiled_ms, match=(), names=False):
     """Run ``fn`` once under ``torch.profiler``: the device-side events
     (kernels and copies; the aten rows that carry their kernels' time again
     are left out, and so are the pad's spin kernels) against
     ``unprofiled_ms``, the unprofiled median wall time of the same call,
     which gives the device's idle share; for each substring in ``match``,
     the device time and share of the events whose name holds it, and each
-    such event's device time in launch order.  The profiler's own host
-    overhead is inside ``wall_ms_profiled`` only."""
+    such event's device time in launch order; with ``names``, every
+    device event's time by name.  The profiler's own host overhead is
+    inside ``wall_ms_profiled`` only."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1916,7 +1967,7 @@ def device_profile(fn, dev, unprofiled_ms, match=()):
                         "share_of_device": ms / device_ms if events else "not measured",
                         "by_launch_ms": [e.self_device_time_total / 1e3
                                          for e in launches if sub in e.name]}
-    return {
+    out = {
         "matched": matched,
         "wall_ms_profiled": wall_ms_profiled,
         "wall_ms_unprofiled_median": unprofiled_ms,
@@ -1926,6 +1977,9 @@ def device_profile(fn, dev, unprofiled_ms, match=()):
         "top_device_events": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
                               for e in top],
     }
+    if names:
+        out["names"] = {e.key: e.self_device_time_total / 1e3 for e in events}
+    return out
 
 
 def wall_ms(fn, dev, reps: int):
@@ -2463,8 +2517,16 @@ def gnn_case(arch: str, shape: str, args, dev) -> dict:
     k1_device_ms = prof["matched"]["segment_reduce_kernel"]["device_ms"]
     lib_ms = None if None in index_add_ms else sum(index_add_ms)
     n_params = sum(int(t.numel()) for t in _leaves(params))
-    del out, again, plain, diff, mag, x, extra
-    return {
+    del out, again, plain, diff, mag
+    torch.cuda.empty_cache()
+    # train_gnn on the same graph, plan, params and features
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 33)
+    batch = gnn_train_batch(cfg, shape, dims, n, x, src_t, dst_t, extra, gen, dev)
+    train, train_k1, train_bwd = gnn_train_case(arch, shape, cfg, plan, params, batch,
+                                                n, e, args, dev)
+    k1_bwd = kernel_k1_bwd(plan, n, args, dev) if shape == "ogb_products" else None
+    del x, extra, batch
+    serve = {
         "arch": arch, "shape": shape, "n": n, "edges": e, "edges_padded": int(src.size),
         "d_in": cfg.d_in, "d_hidden": cfg.d_hidden, "d_out": cfg.d_out,
         "layers": cfg.n_layers, "heads": cfg.n_heads, "params": n_params,
@@ -2481,7 +2543,8 @@ def gnn_case(arch: str, shape: str, args, dev) -> dict:
         "k1_index_add_ms": lib_ms, "k1_index_add_ms_by_launch": index_add_ms,
         "k1_ms_over_index_add": k1_device_ms / lib_ms if lib_ms else None,
         "top_device_events": prof["top_device_events"][:5],
-    }, both
+    }
+    return serve, both, train, train_k1, train_bwd, k1_bwd
 
 
 def k1_index_add_ms(tp, values, monoids, got, dev, reps):
@@ -2554,20 +2617,468 @@ def khop_features(state, args, dev) -> dict:
 
 
 def serve_gnn(args, dev, khop) -> tuple:
-    """Every GNN case of ``GNN_CASES`` (:func:`gnn_case`), one after the
-    other, each freed before the next; ``khop`` is the k-hop part, run
-    earlier on the main session."""
+    """Every GNN case of ``GNN_CASES`` (:func:`gnn_case`), served then
+    trained, one after the other, each freed before the next; ``khop`` is
+    the k-hop part, run earlier on the main session.  Returns the
+    ``serve_gnn`` and ``train_gnn`` lines, the K1 launches of their counted
+    runs, those of the training backward alone, and K1's backward launch
+    at ogbn-products (:func:`kernel_k1_bwd`)."""
     import torch
 
     check(not torch.backends.cuda.matmul.allow_tf32,
           "float32 matmuls must not run in TF32 (the reference's float32)")
-    cases, launches = [], 0
+    t_phase = time.perf_counter()
+    cases, trains, launches, bwd_launches, k1_bwd = [], [], 0, 0, None
     for arch, shape in GNN_CASES:
-        case, k1 = gnn_case(arch, shape, args, dev)
+        case, k1, train, train_k1, train_bwd, bwd_row = gnn_case(arch, shape, args, dev)
         cases.append(case)
-        launches += k1
+        trains.append(train)
+        launches += k1 + train_k1
+        bwd_launches += train_bwd
+        k1_bwd = bwd_row or k1_bwd
         torch.cuda.empty_cache()
-    return {"cases": cases, "khop_aggregate": khop[0]}, launches + khop[1]
+    return ({"cases": cases, "khop_aggregate": khop[0]},
+            {"cases": trains, "seconds": time.perf_counter() - t_phase},
+            launches + khop[1], bwd_launches, k1_bwd)
+
+
+# ---------------------------------------------------------------------- #
+# train_gnn: each GNN case of GNN_CASES trained at full width through
+# launch/steps.build_gnn_train at world 1, on the graph, EdgePlan, params
+# and features gnn_case built for its forward (nothing built twice)
+GNN_TRAIN_STEPS = 5  # steps timed a case (the median of steps 2..5)
+# K1 launches a step (two layers; MeshGraphNet a processor step): forward,
+# and backward for each layer whose input needs a gradient (GCN's and
+# GraphSAGE's first layer reads the features, which need none)
+GNN_K1_BWD_PER_LAYER = {"gcn": 1, "sage": 1, "gat": 4, "meshgraphnet": 2}
+# step 1 on the kernel route against the plain route (K1's plain version
+# under PyTorch's autograd): loss, gnorm, and each gradient element within
+# GNN_TRAIN_TOL * (|plain| + rms(plain)) (float32 sums in another order,
+# the forward gate's form)
+GNN_TRAIN_LOSS_RTOL = 1e-5
+GNN_TRAIN_GNORM_RTOL = 1e-4
+GNN_TRAIN_TOL = 1e-4
+# kernels that add with atomics, by lowercase name substring: none may run
+# in a training step (``index_add_``'s ``indexFunc*Index``, the backward of
+# ``x[idx]``, ``scatter_add_``; ``ReduceAdd`` is the adding functor of the
+# scatter and index kernels, where a gather's is ``TensorAssign``)
+GNN_ATOMIC_KERNELS = ("index_add", "indexfunc", "indexing_backward", "scatter_add",
+                      "reduceadd")
+# the profiled step's device time by kind of kernel, by name substring
+GNN_KERNEL_KINDS = (("cublas", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
+                    ("elementwise", ("elementwise",)))
+# cases with a train mask of this many nodes (Cora's and ogbn-products'
+# public training splits); the sampled subgraph's loss is over its seeds
+GNN_TRAIN_NODES = {"full_graph_sm": 140, "ogb_products": 196_615}
+# the case whose step also runs over a one-device DeviceMesh
+GNN_WORLD1_ARCH = "gcn-cora"
+
+
+def gnn_train_batch(cfg, shape, dims, n, x, src_t, dst_t, extra, gen, dev) -> dict:
+    """The batch ``gnn_loss`` reads, on the case's graph and features:
+    labels and a train mask (``GNN_TRAIN_NODES`` seeded nodes; the sampled
+    subgraph's ``batch_nodes`` seeds) for the classifiers, float32 node
+    targets for MeshGraphNet."""
+    import torch
+
+    batch = {"feats": x, "edge_src": src_t, "edge_dst": dst_t}
+    if cfg.kind == "gcn":
+        batch["edge_w"] = extra["w"]
+    if cfg.kind == "meshgraphnet":
+        batch["edge_feats"] = extra["ef"]
+        batch["targets"] = torch.randn((n, cfg.d_out), generator=gen, device=dev)
+        return batch
+    batch["labels"] = torch.randint(0, cfg.d_out, (n,), generator=gen, device=dev,
+                                    dtype=torch.int32)
+    mask = torch.zeros(n, device=dev)
+    if shape == "minibatch_lg":
+        mask[: dims["batch_nodes"]] = 1.0
+    else:
+        mask[torch.randperm(n, generator=gen, device=dev)[: GNN_TRAIN_NODES[shape]]] = 1.0
+    batch["label_mask"] = mask
+    return batch
+
+
+def _grad_shares(got, want) -> list:
+    """For each gradient, the largest share of ``GNN_TRAIN_TOL * (|want| +
+    rms(want))`` any of its elements reaches."""
+    out = []
+    for a, b in zip(got, want):
+        rms = b.pow(2).mean().sqrt()
+        out.append(float(((a - b).abs() / (GNN_TRAIN_TOL * (b.abs() + rms))).max()))
+    return out
+
+
+def plain_k1_vjp(tp, values, monoids, g):
+    """The gradient of :func:`plain_k1`'s sums with respect to ``values``
+    under PyTorch's autograd (``index_select``, ``where``, ``index_add_``),
+    one chunk of plan rows at a time, the chunks' gradients added in
+    order."""
+    import torch
+
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_reduce_plain
+
+    per = max(1, GNN_PLAIN_ROWS // tp.tm)
+    nm = tp.seg_tiles.shape[0]
+    dv = torch.zeros_like(values)
+    for lo in range(0, nm, per):
+        hi = min(nm, lo + per)
+        with torch.enable_grad():
+            v = values.detach().requires_grad_()
+            part = segment_reduce_plain(v, tp.gather_padded[lo * tp.tm:hi * tp.tm],
+                                        tp.seg_tiles[lo:hi], monoids=tuple(monoids),
+                                        num_out_tiles=tp.num_out_tiles, ts=tp.ts)
+            (d,) = torch.autograd.grad(part[: tp.num_segments], v, g)
+        dv += d
+        del part, d
+    return dv
+
+
+_PLAIN_FN = {}  # the autograd Function of the plain routes, made at first use
+
+
+def _plain_route(pinned: bool):
+    """K1's sums on a plain route of a training step, where autograd
+    records: forward K1's result (``pinned``: both routes then differentiate
+    at the same point) or :func:`plain_k1`'s; backward :func:`plain_k1_vjp`.
+    Elsewhere (GAT's max on detached scores) K1's result."""
+    import torch
+
+    from repro_torch.kernels.segment_reduce.ops import segment_reduce_multi
+
+    if "fn" not in _PLAIN_FN:
+        class PlainK1(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, v, plan, m, pin):
+                ctx.save_for_backward(v)
+                ctx.plan, ctx.m = plan, m
+                return segment_reduce_multi(plan, v, m) if pin else plain_k1(plan, v, m)
+
+            @staticmethod
+            def backward(ctx, g):
+                (v,) = ctx.saved_tensors
+                return plain_k1_vjp(ctx.plan, v, ctx.m, g.contiguous()), None, None, None
+
+        _PLAIN_FN["fn"] = PlainK1
+
+    def fn(tp, values, monoids):
+        if torch.is_grad_enabled() and values.requires_grad:
+            return _PLAIN_FN["fn"].apply(values, tp, tuple(monoids), pinned)
+        return segment_reduce_multi(tp, values, monoids)
+
+    return fn
+
+
+def gnn_train_case(arch, shape, cfg, plan, params, batch, n, e, args, dev) -> tuple:
+    """One GNN case trained at world 1 (``build_gnn_train(cfg, None,
+    dims)``): the source-sorted layout built and timed; step 1's loss and
+    gradients on the kernel route with K1's forward and backward launches
+    counted (reset just before, read just after); the same on the plain
+    route; step 1 twice from the same state, bitwise; ``GNN_TRAIN_STEPS``
+    steps timed with the peak memory; one step profiled (K1 forward and
+    backward, cuBLAS, elementwise, the rest, the idle share; no atomic-add
+    kernel).  Returns the case's line and its counted K1 launches."""
+    import math
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.configs.registry import GNN_SHAPES
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
+    from repro_torch.launch import steps
+    from repro_torch.models import gnn
+    from repro_torch.optim.optimizers import _global_norm
+    from repro_torch.tree import leaves, unflatten
+
+    dims = GNN_SHAPES[shape].dims
+    built = steps.build_gnn_train(cfg, None, dims, torch_device=dev)
+    opt0 = steps.gnn_optimizer().init(params)
+    t = time.perf_counter()
+    plan.source()
+    torch.cuda.synchronize(dev)
+    layout_s = time.perf_counter() - t
+
+    live = [p.detach().requires_grad_() for p in leaves(params)]
+    before = segment_sum_tiled.launches
+    loss = steps.gnn_loss(unflatten(params, live), batch, cfg, n, plan=plan)
+    torch.cuda.synchronize(dev)
+    fwd = segment_sum_tiled.launches - before
+    grads = torch.autograd.grad(loss, live)
+    torch.cuda.synchronize(dev)
+    bwd = segment_sum_tiled.launches - before - fwd
+    bwd_layers = cfg.n_layers - 1 if cfg.kind in ("gcn", "sage") else cfg.n_layers
+    want = (GNN_K1_PER_LAYER[cfg.kind] * cfg.n_layers,
+            GNN_K1_BWD_PER_LAYER[cfg.kind] * bwd_layers)
+    check((fwd, bwd) == want, f"{arch} at {shape}: K1 launches a step (forward, "
+          f"backward) {(fwd, bwd)}, not {want}")
+    loss = loss.detach()
+    gnorm = float(_global_norm(list(grads)))
+    check(bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads),
+          f"{arch} at {shape}: step 1's loss or gradients not finite")
+    # the plain route: the same forward sums (K1's), each differentiated as
+    # K1's plain version under PyTorch's autograd, the gathers through
+    # index_select's own backward (with K1's plain version in the forward
+    # too, the two forwards round their sums differently, and through
+    # MeshGraphNet's 15 residual steps, whose activations reach ~1e3, the
+    # gradients of the early steps part by several times the bound: the
+    # free plain route below is read, not gated)
+    with mock.patch.object(gnn, "_record", lambda *ts: False), \
+            mock.patch.object(gnn, "segment_reduce_multi", _plain_route(pinned=True)):
+        p_loss, p_grads = steps.gnn_value_and_grad(params, batch, cfg, n, plan)
+        torch.cuda.synchronize(dev)
+    p_gnorm = float(_global_norm(p_grads))
+    p_grads = leaves(p_grads)
+    loss_rel = abs(float(loss) - float(p_loss)) / abs(float(p_loss))
+    gnorm_rel = abs(gnorm - p_gnorm) / p_gnorm
+    shares = _grad_shares(grads, p_grads)
+    worst = max(shares)
+    check(loss_rel <= GNN_TRAIN_LOSS_RTOL, f"{arch} at {shape}: loss {float(loss)} against "
+          f"the plain route's {float(p_loss)}")
+    check(gnorm_rel <= GNN_TRAIN_GNORM_RTOL, f"{arch} at {shape}: gnorm {gnorm} against "
+          f"the plain route's {p_gnorm}")
+    check(worst <= 1.0, f"{arch} at {shape}: a gradient off the plain route's by "
+          f"{shares} of the bound")
+    del p_grads
+    # the free plain route: K1's plain version in the forward too; its loss
+    # within GNN_TRAIN_LOSS_RTOL, its gradients read beside
+    with mock.patch.object(gnn, "_record", lambda *ts: False), \
+            mock.patch.object(gnn, "segment_reduce_multi", _plain_route(pinned=False)):
+        f_loss, f_grads = steps.gnn_value_and_grad(params, batch, cfg, n, plan)
+        torch.cuda.synchronize(dev)
+    f_loss_rel = abs(float(loss) - float(f_loss)) / abs(float(f_loss))
+    check(f_loss_rel <= GNN_TRAIN_LOSS_RTOL, f"{arch} at {shape}: loss {float(loss)} "
+          f"against the free plain route's {float(f_loss)}")
+    free = {"loss": float(f_loss), "loss_rel": f_loss_rel,
+            "gnorm_rel": abs(gnorm - float(_global_norm(f_grads))) / p_gnorm,
+            "grad_share_of_tol_by_leaf": _grad_shares(grads, leaves(f_grads))}
+    del f_grads
+    # bitwise repeat: gradients, then the whole step twice from one state
+    again = steps.gnn_value_and_grad(params, batch, cfg, n, plan)
+    check(torch.equal(again[0], loss) and all(torch.equal(a, b) for a, b in
+                                             zip(leaves(again[1]), grads)),
+          f"{arch} at {shape}: two step-1 gradients differ")
+    del again
+    first = built.fn(params, opt0, batch, plan=plan)
+    second = built.fn(params, opt0, batch, plan=plan)
+    torch.cuda.synchronize(dev)
+    check(all(torch.equal(a, b) for a, b in zip(leaves(first), leaves(second))),
+          f"{arch} at {shape}: two step 1s from one state differ")
+    check(torch.equal(first[2]["loss"], loss), f"{arch} at {shape}: the step's loss is "
+          "not its gradients' loss")
+    del second
+    world1 = world1_mesh_step(cfg, dims, params, opt0, batch, first, dev) \
+        if arch == GNN_WORLD1_ARCH else None
+    # GNN_TRAIN_STEPS steps, each timed to its synchronize
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    p, o, history = params, opt0, []
+    for _ in range(GNN_TRAIN_STEPS):
+        t = time.perf_counter()
+        p, o, out = built.fn(p, o, batch, plan=plan)
+        torch.cuda.synchronize(dev)
+        history.append({"ms": (time.perf_counter() - t) * 1e3, "loss": float(out["loss"]),
+                        "gnorm": float(out["gnorm"])})
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["gnorm"]) for h in history),
+          f"{arch} at {shape}: a step's loss or gnorm is not finite")
+    step_ms = statistics.median(h["ms"] for h in history[1:])
+    prof = device_profile(lambda: built.fn(p, o, batch, plan=plan), dev, step_ms,
+                          match=("segment_reduce_kernel",), names=True)
+    k1 = prof["matched"]["segment_reduce_kernel"]
+    check(k1["launches"] == fwd + bwd,
+          f"{arch} at {shape}: the profiled step ran K1 {k1['launches']} times")
+    atomics = [k for k in prof["names"] if any(a in k.lower() for a in GNN_ATOMIC_KERNELS)]
+    check(not atomics, f"{arch} at {shape}: the step launched atomic-add kernels {atomics}")
+    by_kind = {name: sum(ms for key, ms in prof["names"].items()
+                         if any(s in key.lower() for s in subs))
+               for name, subs in GNN_KERNEL_KINDS}
+    k1_fwd_ms, k1_bwd_ms = sum(k1["by_launch_ms"][:fwd]), sum(k1["by_launch_ms"][fwd:])
+    device_ms = prof["device_ms"]
+    return {
+        "arch": arch, "shape": shape, "n": n, "edges": e, "steps": GNN_TRAIN_STEPS,
+        "source_layout_s": layout_s, "source_layout_bytes": plan.source_nbytes(),
+        "plan_bytes": plan.plan_nbytes(),
+        "k1_launches_per_step": {"forward": fwd, "backward": bwd},
+        "step1": {"loss": float(loss), "plain_loss": float(p_loss), "loss_rel": loss_rel,
+                  "gnorm": gnorm, "plain_gnorm": p_gnorm, "gnorm_rel": gnorm_rel,
+                  "grad_share_of_tol": worst, "grad_share_of_tol_by_leaf": shares,
+                  "tol": f"{GNN_TRAIN_TOL} * (|plain| + rms(plain))",
+                  "free_plain_route": free},
+        "bitwise_repeat": True, "atomic_kernels": atomics, "world1_mesh": world1,
+        "step_ms": step_ms, "step_ms_all": [h["ms"] for h in history],
+        "losses": [h["loss"] for h in history], "gnorms": [h["gnorm"] for h in history],
+        "nodes_per_s": n / step_ms * 1e3, "edges_per_s": e / step_ms * 1e3,
+        "peak_bytes": peak,
+        "profile": {"device_ms": device_ms, "device_idle_share": prof["device_idle_share"],
+                    "k1_forward_ms": k1_fwd_ms, "k1_backward_ms": k1_bwd_ms,
+                    **{f"{name}_ms": ms for name, ms in by_kind.items()},
+                    "other_ms": (device_ms - k1_fwd_ms - k1_bwd_ms - sum(by_kind.values())
+                                 if isinstance(device_ms, float) else "not measured"),
+                    "k1_backward_by_launch_ms": k1["by_launch_ms"][fwd:],
+                    "top_device_events": prof["top_device_events"][:6]},
+    }, fwd + bwd, bwd
+
+
+def world1_mesh_step(cfg, dims, params, opt0, batch, one_card, dev) -> str:
+    """The step over a one-device ``DeviceMesh`` (NCCL, a world of one
+    started here and ended after): the batch cut by its specs, its own
+    plan built; every result bitwise ``one_card``'s (the ``mesh=None``
+    step from the same state)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.tree import leaves
+
+    started = not dist.is_initialized()
+    try:
+        mesh = make_debug_mesh(1, 1, dev.type)
+        got = steps.build_gnn_train(cfg, mesh, dims, torch_device=dev).run(
+            params, opt0, batch)
+        check(all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(one_card))),
+              f"{cfg.name}: the world-1 mesh step differs from the one-card step")
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+    return "bitwise the one-card step"
+
+
+def kernel_k1_bwd(plan, n, args, dev) -> dict:
+    """K1 as its own backward at ogbn-products' layer 2 (C = 128): one
+    launch on the source-sorted layout's ``by_src_dst`` over a seeded
+    ``[n, 128]`` upstream gradient, against K1's plain version (chunked,
+    as ``plain_k1``) within ``GNN_TOL`` * (|plain| + rms), bitwise across
+    two launches; timed beside the plain version, ``index_add_`` on the
+    launch's gathered rows and its bound."""
+    import torch
+
+    from repro_torch.kernels.segment_reduce.ops import segment_reduce_multi
+
+    tp = plan.source()[1]
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 35)
+    dout = torch.randn((n, 128), generator=gen, device=dev)
+    monoids = (128, 0, 0)
+    got = segment_reduce_multi(tp, dout, monoids)
+    check(torch.equal(got, segment_reduce_multi(tp, dout, monoids)),
+          "K1's backward launch differs across two launches")
+    plain = plain_k1(tp, dout, monoids)
+    rms = plain.pow(2).mean().sqrt()
+    diff = (got - plain).abs()
+    worst = float((diff / (GNN_TOL * (plain.abs() + rms))).max())
+    check(worst <= 1.0, f"K1's backward launch off its plain version by {worst} of the bound")
+    reps = max(3, args.reps // 4)
+    ms = time_ms(lambda: segment_reduce_multi(tp, dout, monoids), dev, reps)
+    plain_ms = time_ms(lambda: plain_k1(tp, dout, monoids), dev, 2)
+    bound, by = k1_bound(tp, dout, got)
+    err = float(diff.max())
+    del plain, diff
+    torch.cuda.empty_cache()
+    lib_ms = k1_index_add_ms(tp, dout, monoids, got, dev, reps)
+    torch.cuda.empty_cache()
+    return {"shape": "ogb_products layer 2", "rows": int((tp.seg_tiles >= 0).sum()),
+            "columns": 128, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib_ms, "max_abs_err": err,
+            "share_of_tol": worst}
+
+
+# ---------------------------------------------------------------------- #
+# gwq: the paper's two-pass data plane (launch/steps.build_gwq_step) on one
+# card at query_lj's full dims (LiveJournal: n 3,997,962, nb 2,000,000,
+# m 53,437,500 member rows, l 6,000,000 link rows) on a seeded plan:
+# members drawn uniformly over the blocks and the vertices, links over the
+# owners and the blocks, integer attributes in [0, 100)
+GWQ_SHAPE = "query_lj"
+# not run on the card: query_orkut (the same data plane, 2.3x the member
+# rows; the phase's time), query_1b (1e9 member rows: 8 GB of index arrays
+# and minutes of host plan build), query_1b_part (boundary_frac needs a
+# world above 1)
+GWQ_REDUCED = {"query_orkut": "the run's time (124.8 M member rows, 2.3x query_lj's)",
+               "query_1b": "1e9 member rows: 8 GB of index arrays, minutes of host plan",
+               "query_1b_part": "its boundary_frac split needs a world above 1"}
+
+
+def gwq_rows(dims, rng):
+    """(p1g, p1s, p2g, p2s, vals) at ``dims``: each pass's rows sorted by
+    segment, padded to a multiple of 128 with segment -1."""
+    import numpy as np
+
+    n, nb, m, l = dims["n"], dims["nb"], dims["m"], dims["l"]
+
+    def rows(count, n_seg, n_src):
+        seg = np.repeat(np.arange(n_seg, dtype=np.int32),
+                        np.bincount(rng.integers(0, n_seg, count), minlength=n_seg))
+        pad = (-count) % 128
+        return (np.concatenate([rng.integers(0, n_src, count, dtype=np.int32),
+                                np.zeros(pad, np.int32)]),
+                np.concatenate([seg, np.full(pad, -1, np.int32)]))
+
+    p1g, p1s = rows(m, nb, n)
+    p2g, p2s = rows(l, n, nb)
+    return p1g, p1s, p2g, p2s, rng.integers(0, 100, n).astype(np.float32)
+
+
+def gwq_phase(args, dev) -> tuple:
+    """``build_gwq_step`` at ``GWQ_SHAPE``'s full dims on one card: the
+    host plan built and timed, the step's two K1 launches counted (reset
+    just before, read just after), the result bitwise NumPy's int64 sums
+    of the two passes, each pass's K1 timed against its bound and
+    ``index_add_``, the whole step timed.  Returns the line and the
+    launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.paper_gwq import SHAPES
+    from repro_torch.kernels.segment_reduce.ops import segment_sum
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
+    from repro_torch.launch import steps
+
+    t_phase = time.perf_counter()
+    dims = SHAPES[GWQ_SHAPE].dims
+    rng = np.random.default_rng(args.seed + 40)
+    t = time.perf_counter()
+    rows = gwq_rows(dims, rng)
+    rows_s = time.perf_counter() - t
+    built = steps.build_gwq_step(dims, None, torch_device=dev)
+    pieces = built.shard(*rows)
+    t = time.perf_counter()
+    plans = built.plan(*pieces)
+    torch.cuda.synchronize(dev)
+    plan_s = time.perf_counter() - t
+    before = segment_sum_tiled.launches
+    got = built.fn(*pieces, plan=plans)
+    torch.cuda.synchronize(dev)
+    launches = segment_sum_tiled.launches - before
+    check(launches == 2, f"gwq made {launches} K1 launches, not 2")
+    p1g, p1s, p2g, p2s, vals = rows
+    ok1, ok2 = p1s >= 0, p2s >= 0
+    t_host = np.bincount(p1s[ok1], weights=vals[p1g[ok1]], minlength=dims["nb"])
+    want = np.bincount(p2s[ok2], weights=t_host[p2g[ok2]], minlength=dims["n"])
+    check(tuple(got.shape) == (dims["n"],) and
+          np.array_equal(got.cpu().numpy().astype(np.float64), want),
+          "gwq differs from NumPy's int64 sums")
+    reps = max(3, args.reps // 4)
+    vals_t, t_dev = pieces[4], segment_sum(plans[0], pieces[4])
+    passes = {}
+    for name, tp, x in (("pass1", plans[0], vals_t), ("pass2", plans[1], t_dev)):
+        x2 = x[:, None].contiguous()
+        out = segment_sum(tp, x)
+        bound, by = k1_bound(tp, x2, out[:, None])
+        passes[name] = {"rows": int((tp.seg_tiles >= 0).sum()), "segments": tp.num_segments,
+                        "ms": time_ms(lambda tp=tp, x=x: segment_sum(tp, x), dev, reps),
+                        "bound_ms": bound, "bound_by": by,
+                        "library_ms": k1_index_add_ms(tp, x2, (1, 0, 0), out[:, None],
+                                                      dev, reps)}
+        torch.cuda.empty_cache()
+    step_ms = time_ms(lambda: built.fn(*pieces, plan=plans), dev, reps)
+    plan_bytes = sum(tp.plan_nbytes() for tp in plans)
+    del plans, pieces, got, t_dev
+    torch.cuda.empty_cache()
+    return {"shape": GWQ_SHAPE, "dims": dict(dims), "world": 1,
+            "reduced": GWQ_REDUCED, "rows_s": rows_s, "plan_s": plan_s,
+            "plan_bytes": plan_bytes, "k1_launches": launches,
+            "check": "bitwise NumPy's int64 sums", "step_ms": step_ms, "passes": passes,
+            "seconds": time.perf_counter() - t_phase}, launches
 
 
 # ---------------------------------------------------------------------- #
@@ -3173,15 +3684,25 @@ def cluster_phase(args, dev):
     check(health["before_kill"] == "ready", f"health before the kill: {mon.last_report}")
     full_vals = rng.integers(0, 100, (4, n)).astype(np.float64)
     tickets, stop, client_lock = [], threading.Event(), threading.Lock()
+    client_errors = []
     crng = np.random.default_rng(args.seed + 9)
 
     def client():
+        try:
+            client_reads()
+        except Exception as exc:  # reported and failed by the phase below
+            client_errors.append(repr(exc))
+            raise
+
+    def client_reads():
         i = 0
         while not stop.is_set():
             with client_lock:
                 for _ in range(4):
                     si = int(crng.integers(len(specs)))
-                    ryw = rs.version if i % 4 == 3 else None
+                    # read-your-writes at the writer's published version (the
+                    # session's head moves first, mid-update)
+                    ryw = rs.writer.version if i % 4 == 3 else None
                     if i % 8 == 7:  # a full-graph read on the caller's values
                         j = i // 8 % len(full_vals)
                         tk = rs.router.submit(si, values=full_vals[j], min_version=ryw,
@@ -3247,6 +3768,7 @@ def cluster_phase(args, dev):
         th.join(timeout=60)
     load_s_total = time.perf_counter() - t_load
     check(not th.is_alive(), "the client thread did not stop")
+    check(not client_errors, f"the client thread failed: {client_errors}")
     for rep in rs.replicas.values():
         rep.stop_tailing()
     rs.writer.stop(drain=True)
@@ -3954,9 +4476,16 @@ def run(args, dev) -> None:
         torch.cuda.empty_cache()
     fm, launches["fm_interaction"] = serve_fm(args, dev)
     emit({"phase": "serve_fm", **fm})
-    gnn_out, gnn_k1 = serve_gnn(args, dev, khop)
+    gnn_out, gnn_train, gnn_k1, gnn_k1_bwd, k1_bwd = serve_gnn(args, dev, khop)
     emit({"phase": "serve_gnn", **gnn_out})
+    emit({"phase": "train_gnn", **gnn_train})
+    emit({"phase": "kernel:segment_sum_bwd", "check": "ok", **k1_bwd})
     launches["segment_sum"] += gnn_k1
+    launches["segment_sum_bwd"] = gnn_k1_bwd
+    check(gnn_k1_bwd > 0, "the GNN training path launched no K1 backward")
+    gwq, gwq_k1 = gwq_phase(args, dev)
+    emit({"phase": "gwq", **gwq})
+    launches["segment_sum"] += gwq_k1
     # the training path: its backward kernels checked first, then the
     # trainers, the card's memory freed on either side
     torch.cuda.empty_cache()
@@ -4004,6 +4533,15 @@ def run(args, dev) -> None:
                           "max_abs_err")},
          "wd_plan_form": {key: k1_wd["run"][key] for key in
                           ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")},
+         "check": "ok"},
+        {"name": "segment_sum_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/segment_sum.cu",
+         "replaces": ("src/repro/kernels/segment_reduce/segment_reduce.py:69 (the TPU "
+                      "kernel has no backward; the reference differentiates "
+                      "jax.ops.segment_sum): K1 launched on the source-sorted layout"),
+         "launches": launches["segment_sum_bwd"], "max_abs_err": k1_bwd["max_abs_err"],
+         **{key: k1_bwd[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "shape")},
          "check": "ok"},
         {"name": "bitset_expand", "route": "cuda",
          "source": "src/repro_torch/csrc/bitset_expand.cu",
@@ -4102,8 +4640,9 @@ def main(argv=None) -> int:
     # the k-hop graph: cut from 100,000 to 60,000 when the MoE archs joined
     # the run (it took 1,154 s of the 1,200 with 100,000: the host EMC build
     # grows ~n^2 and runs three times on it, 114-141 s each on that run's
-    # host, 67-88 s on earlier ones)
-    ap.add_argument("--n", type=int, default=60_000)
+    # host, 67-88 s on earlier ones), then to 45,000 when GNN training and
+    # the gwq data plane joined it (45.1-50.2 s a build at 60,000)
+    ap.add_argument("--n", type=int, default=45_000)
     ap.add_argument("--degree", type=float, default=10.0)
     ap.add_argument("--seed", type=int, default=0)
     # the k-hop and topological streams' batches: cut from 20 to 10 when

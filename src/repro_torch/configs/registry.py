@@ -25,6 +25,7 @@ ARCH_MODULES = {
     "gcn-cora": "repro_torch.configs.gcn_cora",
     "gat-cora": "repro_torch.configs.gat_cora",
     "fm": "repro_torch.configs.fm_criteo",
+    "paper-gwq": "repro_torch.configs.paper_gwq",
 }
 
 
@@ -39,7 +40,7 @@ class ShapeCase:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     name: str
-    family: str  # lm-dense | lm-moe | gnn | recsys
+    family: str  # lm-dense | lm-moe | gnn | recsys | paper
     model_cfg: Any
     smoke_cfg: Any
     shapes: Dict[str, ShapeCase]

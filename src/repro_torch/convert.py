@@ -194,11 +194,20 @@ def _array(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def _unstack(tree, n_layers: int, fn):
-    out = {k: fn(v) for k, v in tree.items() if k != "layers"}
-    if "layers" in tree:
-        out["layers"] = [{k: fn(np.asarray(a)[i]) for k, a in tree["layers"].items()}
-                         for i in range(n_layers)]
+def _unstack(tree, n_layers: int, fn, stacked: str = "layers"):
+    """``fn`` over every array of a reference tree (dicts and lists kept),
+    the subtree under ``stacked`` (an LM's ``layers``, MeshGraphNet's
+    ``proc``) split into a list of ``n_layers`` per-layer trees."""
+    def conv(node, i=None):
+        if isinstance(node, Mapping):
+            return {k: conv(v, i) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v, i) for v in node]
+        return fn(node if i is None else np.asarray(node)[i])
+
+    out = {k: conv(v) for k, v in tree.items() if k != stacked}
+    if stacked in tree:
+        out[stacked] = [conv(tree[stacked], i) for i in range(n_layers)]
     return out
 
 
@@ -222,26 +231,29 @@ def lm_tree_to_arrays(tree):
     return out
 
 
-def tree_from_arrays(tree: Mapping, n_layers: int = 0, torch_device="cuda"):
-    """Any reference tree of numpy arrays (a flat dict such as the FM's, or
-    an LM's with stacked ``layers``) as the port's tree of tensors on
-    ``torch_device``, each leaf in its own dtype."""
+def tree_from_arrays(tree: Mapping, n_layers: int = 0, torch_device="cuda",
+                     stacked: str = "layers"):
+    """Any reference tree of numpy arrays (a flat dict such as the FM's, an
+    LM's with stacked ``layers``, a GNN's with lists of matrices and
+    MeshGraphNet's stacked ``proc``: ``stacked="proc"``) as the port's tree
+    of tensors on ``torch_device``, each leaf in its own dtype."""
     dev = resolve_device(torch_device)
-    return _unstack(tree, n_layers, lambda a: _tensor(a, dev))
+    return _unstack(tree, n_layers, lambda a: _tensor(a, dev), stacked)
 
 
 def adamw_state_from_arrays(step, mu: Mapping, nu: Mapping, n_layers: int = 0,
-                            torch_device="cuda"):
+                            torch_device="cuda", stacked: str = "layers"):
     """The port's ``AdamWState`` from the reference's ``(step, mu, nu)`` as
     numpy arrays (bf16 moments as ``ml_dtypes`` arrays); ``n_layers`` for
-    an LM whose moments stack their layers."""
+    moments that stack their layers under ``stacked`` (an LM's ``layers``,
+    MeshGraphNet's ``proc``)."""
     from repro_torch.optim.optimizers import AdamWState
 
     dev = resolve_device(torch_device)
     return AdamWState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
                                         device=dev),
-                      mu=tree_from_arrays(mu, n_layers, dev),
-                      nu=tree_from_arrays(nu, n_layers, dev))
+                      mu=tree_from_arrays(mu, n_layers, dev, stacked),
+                      nu=tree_from_arrays(nu, n_layers, dev, stacked))
 
 
 def adamw_state_to_arrays(state) -> dict:

@@ -154,7 +154,7 @@ def check_untracked(what: str, *ts) -> None:
     if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
                                        for t in ts):
         raise RuntimeError(
-            f"{what}: an input requires grad and grad mode is on, but the CUDA "
+            f"{what}: an input requires grad and grad mode is on, but the "
             "kernel's result would carry no gradient; call it under "
             "torch.no_grad() or on detached inputs")
 

@@ -83,11 +83,15 @@ def segment_reduce_tiled(values: torch.Tensor, gather: Optional[torch.Tensor],
     ``seg_tiles`` ``[nm, tm]`` (``-1`` on pad rows) and ``m2out`` ``[nm]``
     (non-decreasing) are int32, as :func:`build_tile_plan` lays them out.
     CPU tensors take :func:`segment_reduce_plain`; CUDA tensors launch the
-    kernel, and anything the kernel does not take raises.  Every launch adds
-    one to ``segment_sum_tiled.launches``."""
+    kernel, and anything the kernel does not take raises.  ``values`` that
+    autograd would record raise on either device: the kernel's result
+    carries no gradient, and the routes that train (the GNN message passing
+    of ``models/gnn.py``) call it inside a ``torch.autograd.Function``.
+    Every launch adds one to ``segment_sum_tiled.launches``."""
     nm = seg_tiles.shape[0]
     dev = values.device
     _build.check_tensor(values, torch.float32, 2, "values")
+    _build.check_untracked("segment_reduce_tiled", values)
     _build.check_tensor(seg_tiles, torch.int32, 2, "seg_tiles", dev)
     _build.check_tensor(m2out, torch.int32, 1, "m2out", dev)
     if tuple(seg_tiles.shape) != (nm, tm) or m2out.shape[0] != nm:
@@ -110,7 +114,6 @@ def segment_reduce_tiled(values: torch.Tensor, gather: Optional[torch.Tensor],
                                     num_out_tiles=num_out_tiles, ts=ts)
     if dev.type != "cuda":
         raise ValueError(f"segment_reduce_tiled: unsupported device {dev}")
-    _build.check_untracked("segment_reduce_tiled", values)
     if nm == 0 or tm % 4:
         raise ValueError(f"the kernel needs at least one input tile and tm % 4 == 0 "
                          f"(nm={nm}, tm={tm})")

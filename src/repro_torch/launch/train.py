@@ -6,7 +6,8 @@ checkpointing and fault-tolerance monitoring, as the reference's
 ``repro.launch.train`` does (``--device cpu`` runs it on the CPU).
 :func:`build_trainer` with ``smoke=False`` takes the full config.  The dense LMs train through
 ``transformer.loss_fn``, the MoE archs through ``moe.loss_fn`` and the FM
-through ``recsys.loss_fn``; GNN archs raise, as in the reference.
+through ``recsys.loss_fn``; GNN archs raise, as in the reference (they
+train through :func:`repro_torch.launch.steps.build_gnn_train`).
 
 Params are the float32 masters (``init_master``) drawn from a
 ``torch.Generator`` seeded with 0 on the device; the data streams are the
@@ -59,8 +60,11 @@ def build_trainer(arch_name: str, *, smoke: bool = True, batch: int = 8,
 
         def loss(p, b):
             return R.loss_fn(p, b, cfg)
+    elif arch.family == "gnn":
+        raise ValueError(f"{arch_name}: GNN archs train through "
+                         "repro_torch.launch.steps.build_gnn_train, not build_trainer")
     else:
-        raise ValueError(f"GNN training is not ported yet ({arch_name})")
+        raise ValueError(f"{arch_name}: the {arch.family!r} family has no training step")
     opt = adamw(cosine_schedule(3e-4, 20, max(steps, 21)))
     tc = TrainConfig(
         total_steps=steps,

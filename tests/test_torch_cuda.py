@@ -834,6 +834,98 @@ def test_gnn_smoke_forward_on_card_matches_cpu(cuda, mod):
     torch.testing.assert_close(got.cpu(), run(torch.device("cpu")), rtol=1e-4, atol=1e-5)
 
 
+# K1 launches of a training step (two layers; MeshGraphNet per processor
+# step): forward, and backward for each layer whose input needs a gradient
+GNN_K1_BWD = {"gcn": 1, "sage": 1, "gat": 4, "meshgraphnet": 2}
+
+
+def _plain_k1(tp, values, monoids):
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_reduce_plain
+
+    return segment_reduce_plain(values.float(), tp.gather_padded, tp.seg_tiles,
+                                monoids=tuple(monoids), num_out_tiles=tp.num_out_tiles,
+                                ts=tp.ts)[: tp.num_segments]
+
+
+@pytest.mark.parametrize("mod", ["gcn_cora", "gat_cora", "graphsage_reddit", "meshgraphnet"])
+def test_gnn_k1_backward_on_card_matches_plain_autograd(cuda, mod, monkeypatch):
+    """A SMOKE GNN's loss and gradients on the card, where every sum of the
+    backward is a K1 launch over the source-sorted layout: K1 launches in
+    the forward and the backward as stated, two backward passes bitwise
+    equal, and each gradient element within 1e-4 * (|plain| + rms(plain))
+    of the plain route (K1's plain version under PyTorch's autograd,
+    ``index_select`` and ``index_add_``: another order of the adds)."""
+    import importlib
+
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
+    from repro_torch.launch import steps
+    from repro_torch.models import gnn
+    from repro_torch.tree import leaves, unflatten
+
+    cfg = importlib.import_module(f"repro_torch.configs.{mod}").SMOKE
+    rng = np.random.default_rng(5)
+    n, e, pad = 300, 1500, 36
+    dst = np.concatenate([np.sort(rng.integers(0, n - 5, e)), np.full(pad, n)])
+    src = np.concatenate([rng.integers(0, n, e), np.full(pad, n)])
+    batch = {"feats": rng.standard_normal((n, cfg.d_in)), "edge_src": src, "edge_dst": dst,
+             "edge_w": rng.random(e + pad), "edge_feats": rng.standard_normal((e + pad, 3)),
+             "targets": rng.standard_normal((n, cfg.d_out)),
+             "labels": rng.integers(0, cfg.d_out, n),
+             "label_mask": (rng.random(n) < 0.5)}
+    batch = {k: torch.from_numpy(v.astype(np.int32 if v.dtype.kind in "iu" else np.float32))
+             .to(cuda) for k, v in batch.items()}
+    init = {"gcn": gnn.gcn_init, "sage": gnn.sage_init, "gat": gnn.gat_init,
+            "meshgraphnet": gnn.mgn_init}[cfg.kind]
+    params = _to(init(torch.Generator().manual_seed(1), cfg), cuda)
+    plan = gnn.edge_plan(src.astype(np.int32), dst.astype(np.int32), n, torch_device=cuda)
+    live = [p.detach().requires_grad_() for p in leaves(params)]
+    before = segment_sum_tiled.launches
+    loss = steps.gnn_loss(unflatten(params, live), batch, cfg, n, plan=plan)
+    fwd = segment_sum_tiled.launches - before
+    grads = torch.autograd.grad(loss, live)
+    torch.cuda.synchronize()
+    bwd = segment_sum_tiled.launches - before - fwd
+    bwd_layers = cfg.n_layers - 1 if cfg.kind in ("gcn", "sage") else cfg.n_layers
+    assert (fwd, bwd) == (GNN_K1_PER_LAYER[cfg.kind] * cfg.n_layers,
+                          GNN_K1_BWD[cfg.kind] * bwd_layers)
+    again = steps.gnn_value_and_grad(params, batch, cfg, n, plan)
+    assert torch.equal(loss.detach(), again[0])
+    for x, y in zip(grads, leaves(again[1])):
+        assert torch.equal(x, y)
+    monkeypatch.setattr(gnn, "_record", lambda *ts: False)
+    monkeypatch.setattr(gnn, "segment_reduce_multi", _plain_k1)
+    p_loss, p_grads = steps.gnn_value_and_grad(params, batch, cfg, n, plan)
+    torch.testing.assert_close(loss.detach(), p_loss, rtol=1e-5, atol=0)
+    for x, y in zip(grads, leaves(p_grads)):
+        rms = y.pow(2).mean().sqrt()
+        assert bool(((x - y).abs() <= 1e-4 * (y.abs() + rms)).all())
+
+
+def test_gwq_step_on_card_bitwise_numpy(cuda):
+    """``build_gwq_step`` on one card: two K1 launches, bitwise NumPy's
+    int64 sums of the two passes on integer values."""
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
+    from repro_torch.launch import steps
+
+    rng = np.random.default_rng(2)
+    n, nb, m, l = 5000, 2000, 40_000, 9000
+    p1s, p2s = np.sort(rng.integers(0, nb, m)), np.sort(rng.integers(0, n, l))
+    p1g, p2g = rng.integers(0, n, m), rng.integers(0, nb, l)
+    vals = rng.integers(0, 100, n)
+    pad = (-m) % 128
+    rows = (np.concatenate([p1g, np.zeros(pad)]).astype(np.int32),
+            np.concatenate([p1s, np.full(pad, -1)]).astype(np.int32),
+            p2g.astype(np.int32), p2s.astype(np.int32), vals.astype(np.float32))
+    built = steps.build_gwq_step(dict(n=n, nb=nb, m=m, l=l), None, torch_device=cuda)
+    before = segment_sum_tiled.launches
+    got = built.run(*rows)
+    torch.cuda.synchronize()
+    assert segment_sum_tiled.launches - before == 2
+    t = np.bincount(p1s, weights=vals[p1g], minlength=nb)
+    want = np.bincount(p2s, weights=t[p2g], minlength=n)
+    assert np.array_equal(got.cpu().numpy().astype(np.float64), want)
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
