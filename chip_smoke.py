@@ -3606,6 +3606,201 @@ def train_phase(args, dev) -> tuple:
 
 
 # ---------------------------------------------------------------------- #
+# The mesh step builders at world 1: a 1 x 1 NCCL mesh, whose steps run
+# plain tensors, each held against the same builder with no mesh
+MESH_LM = dict(arch="qwen3-0.6b", batch=TRAIN_LM["batch"], seq=TRAIN_LM["seq"])
+MESH_MOE = dict(arch="qwen2-moe-a2.7b", depth=TRAIN_MOE["depth"], batch=TRAIN_MOE["batch"],
+                seq=TRAIN_MOE["seq"])
+MESH_FM = dict(train=TRAIN_FM["batch"], serve=262_144, candidates=1_000_000)
+MESH_REPS = 3
+
+
+def _tree_diff(a, b) -> dict:
+    """The leaves of two like trees that are not bitwise equal, each with
+    its largest difference over its largest magnitude."""
+    import torch
+
+    from repro_torch.tree import flatten_with_paths
+
+    out = {}
+    for (key, x), (_, y) in zip(flatten_with_paths(a), flatten_with_paths(b)):
+        if not (x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)):
+            out[key or "value"] = float((x.float() - y.float()).abs().max()
+                                        / y.float().abs().max().clamp_min(1e-30))
+    return out
+
+
+def _check_bitwise(what, **pairs):
+    """Each named (mesh, one-card) pair of trees bitwise equal."""
+    for name, (a, b) in pairs.items():
+        off = _tree_diff(a, b)
+        check(not off, f"{what}: {name} of the 1 x 1 mesh step off the one-card step's: {off}")
+
+
+def mesh_steps(args, dev) -> tuple:
+    """The LM and FM step builders (``repro_torch.launch.steps``) at world 1
+    on a 1 x 1 NCCL mesh (``make_debug_mesh(1, 1, "cuda")``), each step once
+    on the mesh and once with ``mesh=None``, the same inputs: qwen3-0.6b at
+    full width and depth (``build_lm_train`` at ``TRAIN_LM``'s batch and
+    seq, the train phase's seeded params and first batch; ``build_lm_prefill``
+    on it; ``build_lm_decode`` on its cache at the last position), qwen2-moe
+    at depth 2 (``build_lm_train``: on the mesh the expert-TP branch,
+    ``acts["moe_shard"]``; without one the batched dispatch), and the FM's
+    train, serve and retrieval steps at full width.  The dense and FM steps
+    must be bitwise; the MoE step's loss within ``TRAIN_LOSS_RTOL`` and
+    gnorm within ``TRAIN_GNORM_RTOL``.  K3's and K4's counts (forward and backward) are
+    reset just before the phase's steps and read just after; each must be
+    nonzero.  Each step's wall time is the median of ``MESH_REPS`` calls
+    (the MoE step's: one call; its branch dispatches its 512 groups one at a
+    time, as the reference's scan does), beside its one-card counterpart's;
+    the decode's includes a copy of the cache a call (it is written in
+    place)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import moe as M
+    from repro_torch.models import recsys as R
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    started = not dist.is_initialized()
+    mesh = make_debug_mesh(1, 1, "cuda")
+    out, timing = {}, {}
+
+    def both(name, make, *inputs, copy=None, reps=MESH_REPS):
+        """(mesh result, one-card result) of a builder's step; times each
+        (the median of ``reps`` more calls)."""
+        res = {}
+        for tag, m in (("mesh", mesh), ("one_card", None)):
+            built = make(m)
+            fresh = (lambda: copy(*inputs)) if copy else (lambda: inputs)
+            res[tag] = built.fn(*fresh())
+            torch.cuda.synchronize(dev)
+            timing.setdefault(name, {})[f"{tag}_ms"] = wall_ms(
+                lambda: built.fn(*fresh()), dev, reps)
+        return res["mesh"], res["one_card"]
+
+    try:
+        _reset_counts()
+        # qwen3-0.6b: train, prefill, decode
+        cfg = get_arch(MESH_LM["arch"]).model_cfg
+        b, s = MESH_LM["batch"], MESH_LM["seq"]
+        params = steps.stack_layers(T.init_master(torch.Generator(device=dev).manual_seed(0),
+                                                  cfg))
+        opt = steps._lm_optimizer(cfg)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 TokenStream(vocab=cfg.vocab, batch=b, seq=s).next().items()}
+        (pm, om, lm), (p1, o1, l1) = both(
+            "qwen3_train", lambda m: steps.build_lm_train(cfg, m, dict(batch=b, seq=s),
+                                                          torch_device=dev),
+            params, opt.init(params), batch)
+        _check_bitwise("qwen3 train", params=(pm, p1), opt_state=(om, o1), out=(lm, l1))
+        out["qwen3_train"] = {"loss": float(lm["loss"]), "gnorm": float(lm["gnorm"])}
+        check(bool(torch.isfinite(lm["loss"])), f"qwen3 mesh train loss {lm['loss']}")
+        del pm, om, p1, o1
+        torch.cuda.empty_cache()
+        (kvm, lgm), (kv1, lg1) = both(
+            "qwen3_prefill", lambda m: steps.build_lm_prefill(cfg, m, dict(batch=b, seq=s - 1),
+                                                              torch_device=dev),
+            params, batch["tokens"][:, :s - 1])
+        _check_bitwise("qwen3 prefill", kv=(kvm, kv1), logits=(lgm, lg1))
+        out["qwen3_prefill"] = {}
+        del kvm, lgm, lg1
+        cache = {k: torch.cat([v, v.new_zeros((*v.shape[:3], 1, v.shape[4]))], 3)
+                 for k, v in kv1.items()}
+        del kv1
+        (dlm, dkvm), (dl1, dkv1) = both(
+            "qwen3_decode", lambda m: steps.build_lm_decode(cfg, m, dict(batch=b, seq=s),
+                                                            torch_device=dev),
+            params, batch["tokens"][:, -1], cache,
+            copy=lambda p, tok, kv: (p, tok, {k: v.clone() for k, v in kv.items()}))
+        _check_bitwise("qwen3 decode", logits=(dlm, dl1), kv=(dkvm, dkv1))
+        out["qwen3_decode"] = {}
+        del params, cache, dlm, dkvm, dl1, dkv1
+        torch.cuda.empty_cache()
+
+        # qwen2-moe at depth 2: the expert-TP branch against the batched dispatch
+        full = get_arch(MESH_MOE["arch"]).model_cfg
+        mcfg = dataclasses.replace(full, n_layers=MESH_MOE["depth"],
+                                   name=f"{full.name}-depth{MESH_MOE['depth']}")
+        b, s = MESH_MOE["batch"], MESH_MOE["seq"]
+        params = steps.stack_layers(M.init_master(torch.Generator(device=dev).manual_seed(0),
+                                                  mcfg))
+        opt = steps._lm_optimizer(mcfg)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 TokenStream(vocab=mcfg.vocab, batch=b, seq=s).next().items()}
+        (pm, om, lm), (p1, o1, l1) = both(
+            "moe_train", lambda m: steps.build_lm_train(mcfg, m, dict(batch=b, seq=s),
+                                                        torch_device=dev),
+            params, opt.init(params), batch, reps=1)  # the branch loops over 512 groups
+        loss_m, loss_1 = float(lm["loss"]), float(l1["loss"])
+        gn_m, gn_1 = float(lm["gnorm"]), float(l1["gnorm"])
+        check(abs(loss_m - loss_1) <= TRAIN_LOSS_RTOL * abs(loss_1)
+              and abs(gn_m - gn_1) <= TRAIN_GNORM_RTOL * abs(gn_1),
+              f"MoE expert-TP branch: loss {loss_m}, gnorm {gn_m} against the batched "
+              f"dispatch's {loss_1}, {gn_1}")
+        out["moe_train"] = {"model": mcfg.name, "loss": loss_m, "one_card_loss": loss_1,
+                            "gnorm": gn_m, "one_card_gnorm": gn_1,
+                            "params_max_rel_diff": max(_tree_diff(pm, p1).values(), default=0.0)}
+        del params, pm, om, p1, o1
+        torch.cuda.empty_cache()
+
+        # the FM: train, serve, retrieval at full width
+        fcfg = get_arch("fm").model_cfg
+        params = R.init(torch.Generator(device=dev).manual_seed(args.seed), fcfg)
+        rng = np.random.default_rng(args.seed + 7)
+
+        def ids(n):
+            return torch.from_numpy(rng.integers(0, 2**31 - 1, (n, fcfg.n_fields),
+                                                 dtype=np.int32)).to(dev)
+
+        fb = MESH_FM["train"]
+        fbatch = {"x": ids(fb), "y": torch.from_numpy(
+            (rng.random(fb) < 0.25).astype(np.float32)).to(dev)}
+        fopt = steps.fm_optimizer()
+        (pm, om, lm), (p1, o1, l1) = both(
+            "fm_train", lambda m: steps.build_fm_step(fcfg, m, "train", dict(batch=fb),
+                                                      torch_device=dev),
+            params, fopt.init(params), fbatch)
+        _check_bitwise("FM train", params=(pm, p1), opt_state=(om, o1), out=(lm, l1))
+        out["fm_train"] = {"loss": float(lm["loss"])}
+        del pm, om, p1, o1
+        x = ids(MESH_FM["serve"])
+        sm, s1 = both("fm_serve", lambda m: steps.build_fm_step(
+            fcfg, m, "serve", dict(batch=MESH_FM["serve"]), torch_device=dev), params, x)
+        _check_bitwise("FM serve", scores=(sm, s1))
+        out["fm_serve"] = {}
+        cand = torch.from_numpy(rng.integers(0, fcfg.total_rows, MESH_FM["candidates"],
+                                             dtype=np.int32)).to(dev)
+        rm, r1 = both("fm_retrieval", lambda m: steps.build_fm_step(
+            fcfg, m, "retrieval", dict(n_candidates=MESH_FM["candidates"]),
+            torch_device=dev), params, x[:1], cand)
+        _check_bitwise("FM retrieval", scores=(rm, r1))
+        out["fm_retrieval"] = {}
+        del params, x, cand
+        counts = _read_counts()
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    for name in ("flash_attention", "flash_attention_bwd", "fm_interaction",
+                 "fm_interaction_bwd"):
+        check(counts[name] > 0, f"the mesh steps launched no {name}: {counts}")
+    for name, t in timing.items():
+        out[name].update(t)
+    out["launches"] = counts
+    out["seconds"] = time.perf_counter() - t0
+    return out, counts
+
+
+# ---------------------------------------------------------------------- #
 # The cluster tier: one writer, two followers tailing its segmented WAL,
 # reads placed by the router.  ER n = 30,000, degree 10, KHop(2), cut from
 # the k-hop phase's 100,000 by the run's time: the phase makes four host
@@ -4503,6 +4698,11 @@ def run(args, dev) -> None:
         launches[name] = train_counts[name]
         check(launches[name] > 0, f"the training path launched no {name}")
     launches["flash_attention_bwd_simt"] = train_counts["flash_attention_bwd_simt"]
+    meshed, mesh_counts = mesh_steps(args, dev)
+    emit({"phase": "mesh_steps", "nvidia_smi": smi, **meshed})
+    for name in ("flash_attention", "fm_interaction", "flash_attention_bwd",
+                 "fm_interaction_bwd", "flash_attention_bwd_sm90", "flash_attention_bwd_simt"):
+        launches[name] += mesh_counts[name]
     # after the timed serving paths, before K2's 2 M-vertex graph: a graph
     # and a generator of its own
     cluster = cluster_phase(args, dev)

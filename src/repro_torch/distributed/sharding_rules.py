@@ -20,8 +20,8 @@ multi-pod; ``dp_axes`` is ``("data",)`` or ``("pod", "data")``.
 * Optimizer state: moments split like their param; Adafactor's row and
   column factors drop the reduced dimension; scalars replicate.
 
-The LM and recsys specs are data here: the step builders that apply them
-over a production mesh are not ported yet.
+The step builders (:mod:`repro_torch.launch.steps`) apply them over a
+``DeviceMesh``: each rank's pieces become DTensors at :func:`placements`.
 """
 
 from __future__ import annotations

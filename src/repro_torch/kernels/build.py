@@ -139,6 +139,22 @@ def sass(name: str) -> str:
     return out.stdout
 
 
+def is_fake(t) -> bool:
+    """A fake tensor (``FakeTensorMode``: shapes only, no storage)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor)
+
+
+def plain_route(t: torch.Tensor) -> bool:
+    """Whether a wrapper given ``t`` takes its kernel's plain version: a
+    real tensor on the CPU does; a CUDA tensor launches the kernel, and a
+    fake tensor (the dry-run's, on any device) takes the kernel's route,
+    where the kernel's registered fake implementation stands in for the
+    launch."""
+    return t.device.type == "cpu" and not is_fake(t)
+
+
 def check(err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
     if err != 0:

@@ -45,8 +45,10 @@ card reaches it through ``models.attention.attention``.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.flash_attention.ref import flash_torch
@@ -138,28 +140,57 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     and anything it does not take raises, as does a CUDA call that autograd
     would record (use :func:`flash_attention_train`)."""
     b, hq, hkv, s, d = _check_qkv(q, k, v)
-    if q.device.type == "cpu":
+    if _build.plain_route(q):
         return flash_attention_plain(q, k, v, causal=causal)
     _build.check_untracked("flash_attention", q, k, v)
-    name = route(q.dtype, d)
+    route(q.dtype, d)
     if b * hq > 65535:
         raise ValueError(f"B * Hq = {b * hq} exceeds the grid's 65535 rows")
-    out = torch.empty_like(q)
     if s == 0 or b == 0:
-        return out
+        return torch.empty_like(q)
+    return torch.ops.repro_torch.flash_attention_fwd(q, k, v, causal)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def _fwd_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool) -> torch.Tensor:
+    """One launch of :func:`route`'s forward kernel (checked inputs)."""
+    b, hq, s, d = q.shape
+    name = route(q.dtype, d)
+    out = torch.empty_like(q)
     fn = _lib(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
         if name == "sm90":
-            err = fn(*ptrs, b, hq, hkv, s, d, int(causal), d ** -0.5, stream)
+            err = fn(*ptrs, b, hq, k.shape[1], s, d, int(causal), d ** -0.5, stream)
         else:
-            err = fn(*ptrs, _DTYPE_CODE[q.dtype], b, hq, hkv, s, d, int(causal),
+            err = fn(*ptrs, _DTYPE_CODE[q.dtype], b, hq, k.shape[1], s, d, int(causal),
                      d ** -0.5, stream)
     _build.check(err, f"flash_attention ({name})")
     flash_attention.launches += 1
     flash_attention.launches_by_route[name] += 1
     return out
+
+
+@_fwd_launch.register_fake
+def _(q, k, v, causal):
+    return torch.empty_like(q)
+
+
+def attention_flops(b: int, hq: int, s: int, d: int, causal: bool, products: int = 2) -> int:
+    """Multiply-add FLOPs (2 a multiply-add) of ``products`` [S, S] x [S, D]
+    products a head: over the causal triangle's S (S + 1) / 2 (query, key)
+    pairs, or all S * S."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return 2 * products * b * hq * pairs * d
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _(q_shape, k_shape, v_shape, causal, *args, **kwargs) -> int:
+    b, hq, s, d = q_shape
+    return attention_flops(b, hq, s, d, causal)
 
 
 #: kernel launches so far, in all and by route (plain counts; callers may
@@ -191,14 +222,26 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True):
         _build.check_tensor(t, q.dtype, 4, name, q.device)
         if t.shape != q.shape:
             raise ValueError(f"{name} is {tuple(t.shape)}, q {tuple(q.shape)}")
-    if q.device.type == "cpu":
+    if _build.plain_route(q):
         return flash_attention_bwd_plain(q, k, v, do, causal=causal)
-    name = bwd_route(q.dtype, d)
+    bwd_route(q.dtype, d)
     if b * hq > 65535:
         raise ValueError(f"B * Hq = {b * hq} exceeds the grid's 65535 rows")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if s == 0 or b == 0:
-        return dq, dk, dv
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    return tuple(torch.ops.repro_torch.flash_attention_bwd(q, k, v, o, do, causal))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
+                         device_types="cuda")
+def _bwd_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                do: torch.Tensor, causal: bool) -> Tuple[torch.Tensor, torch.Tensor,
+                                                         torch.Tensor]:
+    """One call of :func:`bwd_route`'s three backward kernels (checked
+    inputs)."""
+    b, hq, s, d = q.shape
+    name = bwd_route(q.dtype, d)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # lse and delta scratch: the sm90 kernels read whole 64-row tiles of it
     rows = -(-s // 64) * 64 if name == "sm90" else s
     lse = torch.empty((b, hq, rows), dtype=torch.float32, device=q.device)
@@ -210,14 +253,26 @@ def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True):
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
                 delta.data_ptr())
         if name == "sm90":
-            err = fn(*ptrs, b, hq, hkv, s, d, int(causal), d ** -0.5, stream)
+            err = fn(*ptrs, b, hq, k.shape[1], s, d, int(causal), d ** -0.5, stream)
         else:
-            err = fn(*ptrs, _DTYPE_CODE[q.dtype], b, hq, hkv, s, d, int(causal),
+            err = fn(*ptrs, _DTYPE_CODE[q.dtype], b, hq, k.shape[1], s, d, int(causal),
                      d ** -0.5, stream)
     _build.check(err, f"flash_attention_bwd ({name})")
     flash_attention_bwd.launches += 1
     flash_attention_bwd.launches_by_route[name] += 1
     return dq, dk, dv
+
+
+@_bwd_launch.register_fake
+def _(q, k, v, o, do, causal):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _(q_shape, k_shape, v_shape, o_shape, do_shape, causal, *args, **kwargs) -> int:
+    # the recomputed scores, dP = dO V^T, dV = P^T dO, dQ = dS K, dK = dS^T Q
+    b, hq, s, d = q_shape
+    return attention_flops(b, hq, s, d, causal, products=5)
 
 
 #: backward calls on the card so far, in all and by route, each three

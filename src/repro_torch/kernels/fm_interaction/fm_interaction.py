@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.fm_interaction.ref import fm_interaction_ref
@@ -50,7 +51,7 @@ def _check_emb(emb: torch.Tensor) -> None:
     _build.check_tensor(emb, torch.float32, 3, "emb")
     if emb.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fm_interaction: unsupported device {emb.device}")
-    if emb.device.type == "cuda" and emb.shape[1] * emb.shape[2] > MAX_ROW_FLOATS:
+    if not _build.plain_route(emb) and emb.shape[1] * emb.shape[2] > MAX_ROW_FLOATS:
         raise ValueError(f"F * K = {emb.shape[1] * emb.shape[2]} floats exceed one "
                          f"block's shared memory ({MAX_ROW_FLOATS})")
 
@@ -65,15 +66,23 @@ def fm_interaction(emb: torch.Tensor) -> torch.Tensor:
     :func:`fm_interaction_plain`; CUDA tensors launch the kernel, and
     anything the kernel does not take raises."""
     _check_emb(emb)
-    if emb.device.type == "cpu":
+    if _build.plain_route(emb):
         return fm_interaction_plain(emb)
     _build.check_untracked("fm_interaction", emb)
     b, f, k = emb.shape
-    out = torch.empty((b,), dtype=torch.float32, device=emb.device)
     if b == 0:
-        return out
+        return torch.empty((b,), dtype=torch.float32, device=emb.device)
     if f == 0 or k == 0:
-        return out.zero_()
+        return torch.zeros((b,), dtype=torch.float32, device=emb.device)
+    return torch.ops.repro_torch.fm_interaction_fwd(emb)
+
+
+@torch.library.custom_op("repro_torch::fm_interaction_fwd", mutates_args=(),
+                         device_types="cuda")
+def _fwd_launch(emb: torch.Tensor) -> torch.Tensor:
+    """One launch of the forward kernel (checked input)."""
+    b, f, k = emb.shape
+    out = torch.empty((b,), dtype=torch.float32, device=emb.device)
     fn = _lib()
     with torch.cuda.device(emb.device):
         stream = torch.cuda.current_stream(emb.device).cuda_stream
@@ -81,6 +90,19 @@ def fm_interaction(emb: torch.Tensor) -> torch.Tensor:
     _build.check(err, "fm_interaction_f32")
     fm_interaction.launches += 1
     return out
+
+
+@_fwd_launch.register_fake
+def _(emb):
+    return emb.new_empty((emb.shape[0],))
+
+
+@register_flop_formula(torch.ops.repro_torch.fm_interaction_fwd)
+def _(emb_shape, *args, **kwargs) -> int:
+    # per example and column: F adds for the sum, F multiply-adds for the
+    # squares, then the square of the sum and a subtract
+    b, f, k = emb_shape
+    return b * k * (3 * f + 2)
 
 
 #: kernel launches so far (a plain count; callers may reset it to 0)
@@ -106,12 +128,19 @@ def fm_interaction_bwd(emb: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     _build.check_tensor(g, torch.float32, 1, "g", emb.device)
     if g.shape[0] != emb.shape[0]:
         raise ValueError(f"g has {g.shape[0]} rows for {emb.shape[0]} examples")
-    if emb.device.type == "cpu":
+    if _build.plain_route(emb):
         return fm_interaction_bwd_plain(emb, g)
+    if emb.numel() == 0:
+        return torch.empty_like(emb)
+    return torch.ops.repro_torch.fm_interaction_bwd(emb, g)
+
+
+@torch.library.custom_op("repro_torch::fm_interaction_bwd", mutates_args=(),
+                         device_types="cuda")
+def _bwd_launch(emb: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """One launch of the backward kernel (checked inputs)."""
     b, f, k = emb.shape
     out = torch.empty_like(emb)
-    if out.numel() == 0:
-        return out
     fn = _bwd_lib()
     with torch.cuda.device(emb.device):
         stream = torch.cuda.current_stream(emb.device).cuda_stream
@@ -119,6 +148,18 @@ def fm_interaction_bwd(emb: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     _build.check(err, "fm_interaction_bwd_f32")
     fm_interaction_bwd.launches += 1
     return out
+
+
+@_bwd_launch.register_fake
+def _(emb, g):
+    return torch.empty_like(emb)
+
+
+@register_flop_formula(torch.ops.repro_torch.fm_interaction_bwd)
+def _(emb_shape, g_shape, *args, **kwargs) -> int:
+    # the column sums, then g * (sum - emb) an element
+    b, f, k = emb_shape
+    return b * k * (3 * f + f)
 
 
 #: backward kernel launches so far (a plain count; callers may reset it to 0)

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.build import plain_route
 from repro_torch.kernels.fm_interaction.fm_interaction import (
     fm_interaction,
     fm_interaction_train,
@@ -17,6 +18,6 @@ def fm_second_order(emb):
     records (grad mode on, ``emb`` requiring grad: training) takes K4 with
     its backward kernel."""
     emb = emb.float().contiguous()
-    if emb.is_cuda and torch.is_grad_enabled() and emb.requires_grad:
+    if not plain_route(emb) and torch.is_grad_enabled() and emb.requires_grad:
         return fm_interaction_train(emb)
     return fm_interaction(emb)

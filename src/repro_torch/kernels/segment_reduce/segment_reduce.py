@@ -16,6 +16,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build as _build
 
@@ -109,31 +110,54 @@ def segment_reduce_tiled(values: torch.Tensor, gather: Optional[torch.Tensor],
     if len(monoids) != 3 or min(monoids) < 0 or sum(monoids) != channels:
         raise ValueError(f"monoids (n_sum, n_min, n_max) = {monoids} do not "
                          f"split the {channels} columns")
-    if dev.type == "cpu":
+    if _build.plain_route(values):
         return segment_reduce_plain(values, gather, seg_tiles, monoids=monoids,
                                     num_out_tiles=num_out_tiles, ts=ts)
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not _build.is_fake(values):
         raise ValueError(f"segment_reduce_tiled: unsupported device {dev}")
     if nm == 0 or tm % 4:
         raise ValueError(f"the kernel needs at least one input tile and tm % 4 == 0 "
                          f"(nm={nm}, tm={tm})")
+    if channels * 16 > 200 * 1024:  # each of a block's 4 warps keeps a [C] carry
+        raise ValueError(f"{channels} columns need more shared memory than a block has")
+    if channels == 0:
+        return torch.empty((num_out_tiles * ts, 0), dtype=torch.float32, device=dev)
+    return torch.ops.repro_torch.segment_reduce_tiled(
+        values, gather, seg_tiles, m2out, tm, ts, monoids[0], monoids[1], num_out_tiles)
+
+
+@torch.library.custom_op("repro_torch::segment_reduce_tiled", mutates_args=(),
+                         device_types="cuda")
+def _launch(values: torch.Tensor, gather: Optional[torch.Tensor], seg_tiles: torch.Tensor,
+            m2out: torch.Tensor, tm: int, ts: int, n_sum: int, n_min: int,
+            num_out_tiles: int) -> torch.Tensor:
+    """One launch of the kernel (checked inputs)."""
     for t in (seg_tiles, gather):
         if t is not None and t.data_ptr() % 16:
             raise ValueError("plan index arrays must be 16-byte aligned")
-    if channels * 16 > 200 * 1024:  # each of a block's 4 warps keeps a [C] carry
-        raise ValueError(f"{channels} columns need more shared memory than a block has")
+    nm, channels, dev = seg_tiles.shape[0], values.shape[1], values.device
     out = torch.empty((num_out_tiles * ts, channels), dtype=torch.float32, device=dev)
-    if channels == 0:
-        return out
     fn = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(values.data_ptr(), None if gather is None else gather.data_ptr(),
                  seg_tiles.data_ptr(), m2out.data_ptr(), nm * tm, tm, ts, channels,
-                 monoids[0], monoids[1], out.data_ptr(), stream)
+                 n_sum, n_min, out.data_ptr(), stream)
     _build.check(err, "segment_reduce_f32")
     segment_sum_tiled.launches += 1
     return out
+
+
+@_launch.register_fake
+def _(values, gather, seg_tiles, m2out, tm, ts, n_sum, n_min, num_out_tiles):
+    return values.new_empty((num_out_tiles * ts, values.shape[1]))
+
+
+@register_flop_formula(torch.ops.repro_torch.segment_reduce_tiled)
+def _(values_shape, gather_shape, seg_tiles_shape, *args, **kwargs) -> int:
+    # one add (or min, max) a plan row and column
+    nm, tm = seg_tiles_shape
+    return nm * tm * values_shape[1]
 
 
 def segment_sum_tiled(values: torch.Tensor, gather: Optional[torch.Tensor],

@@ -2,8 +2,9 @@
 
 A mesh is a :class:`torch.distributed.device_mesh.DeviceMesh` whose
 dimensions carry the reference's axis names (``"data"``, ``"model"``, and
-``"pod"`` on a multi-pod mesh).  The production mesh builder is not ported
-yet: it comes with the LM step builders that use it.
+``"pod"`` on a multi-pod mesh).  Both builders are functions over the
+default process group, which the caller starts (the dry-run starts a fake
+one of 256 or 512 ranks in one process).
 """
 
 from __future__ import annotations
@@ -19,6 +20,27 @@ def dp_axes_of(mesh) -> Tuple[str, ...]:
     mesh's order."""
     names = tuple(mesh.mesh_dim_names or ())
     return tuple(a for a in names if a in ("pod", "data"))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """The reference's production mesh over the default process group:
+    ``(16, 16)`` as ``("data", "model")``, or ``(2, 16, 16)`` as ``("pod",
+    "data", "model")`` with ``multi_pod``, so the dry-run's cells compare
+    with the reference's specs one to one.
+
+    On H100s these shapes are the reference's, not the card's: a 16-wide
+    ``"model"`` axis spans two 8-GPU NVLink domains, so its collectives
+    leave NVLink for the inter-node network (the roofline charges them
+    there).  The caller starts a group of 256 (512) ranks first."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    size = 512 if multi_pod else 256
+    if not dist.is_initialized() or dist.get_world_size() != size:
+        raise RuntimeError(f"the production mesh {shape} needs a process group of "
+                           f"{size} ranks; start one first")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
 def make_debug_mesh(n_data: int = 2, n_model: int = 2, device_type: str = "cpu"):

@@ -10,15 +10,26 @@ argument's spec tree (:mod:`repro_torch.distributed.sharding_rules`) and
 :meth:`BuiltStep.shard`, which cuts whole arguments into this rank's
 pieces by those specs.
 
-Ported so far:
+One builder per family, as in the reference:
 
+* LM train / prefill / decode (:func:`build_lm_train`,
+  :func:`build_lm_prefill`, :func:`build_lm_decode`): FSDP x TP over
+  DTensors.  Each rank's pieces become DTensors at their specs'
+  placements; right before a layer uses a weight it is redistributed with
+  the dp axes dropped (the FSDP all-gather, whose backward is a
+  reduce-scatter), the ``"model"`` axis stays split (TP), the activations
+  are anchored by :mod:`repro_torch.distributed.actshard`, and K3 runs on
+  each rank's local shards.  The LM params are the reference's tree, the
+  layers stacked ``[L, ...]``; the step unbinds them for the model;
 * GNN train: :func:`gnn_loss` (the reference's, letter for letter) and
   :func:`build_gnn_train` (``value_and_grad`` + AdamW with the reference's
   cosine schedule), edges sharded over the whole mesh;
+* recsys (:func:`build_fm_step`): train, serve and retrieval, the table
+  row-split over ``"model"``, K4 on each rank's batch rows;
 * paper-gwq: :func:`build_gwq_step`, the paper's two-pass data plane.
 
-The LM and FM builders (``build_lm_train`` / ``prefill`` / ``decode``,
-``build_fm_step``) come with the production mesh.
+Over ``mesh=None`` or a mesh of one device a step runs plain tensors on
+one device, bitwise the step with no mesh.
 """
 
 from __future__ import annotations
@@ -31,38 +42,51 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding_rules as SR
 from repro_torch.distributed.sharding_rules import Spec, entry_axes
 from repro_torch.launch.mesh import dp_axes_of
 from repro_torch.models import gnn as G
-from repro_torch.optim.optimizers import adamw
+from repro_torch.models import moe as MoE
+from repro_torch.models import recsys as R
+from repro_torch.models import transformer as T
+from repro_torch.optim.optimizers import adafactor, adamw
 from repro_torch.optim.schedules import cosine_schedule
 from repro_torch.train.trainer import value_and_grad
 from repro_torch.tree import tree_map
 
 
+def _no_plan(*pieces):
+    return None
+
+
 @dataclasses.dataclass
 class BuiltStep:
-    """``fn(*pieces, plan=None)`` runs on each rank on its pieces of the
-    arguments; ``args`` are meta-device stand-ins of the whole arguments
-    and ``in_specs`` their spec trees (``out_specs`` the results').
-    ``plan(*pieces)`` builds, on the host, the plan the step's kernels run
-    on from this rank's pieces: ``fn`` builds it when not given one, so a
-    caller that runs many steps on one graph builds it once."""
+    """``fn(*pieces)`` runs on each rank on its pieces of the arguments;
+    ``args`` are meta-device stand-ins of the whole arguments and
+    ``in_specs`` their spec trees (``out_specs`` the results', each rank
+    returning its pieces).  The GNN and gwq steps also take ``plan=``:
+    ``plan(*pieces)`` builds, on the host, the plan their kernels run on
+    from this rank's pieces, and ``fn`` builds it when not given one, so a
+    caller that runs many steps on one graph builds it once.
+    ``donate_argnums`` are the arguments the step replaces, as the
+    reference donates them (params and optimizer state; a decode step's
+    cache, which it updates in place on one device)."""
 
     fn: Callable
     args: Tuple[Any, ...]
     in_specs: Tuple[Any, ...]
     out_specs: Any
-    plan: Callable
+    plan: Callable = _no_plan
     mesh: Any = None
     device: torch.device = torch.device("cpu")
+    donate_argnums: Tuple[int, ...] = ()
 
     def shard(self, *args) -> Tuple[Any, ...]:
         """This rank's pieces of whole arguments (trees of tensors or NumPy
         arrays) on the step's device: each dimension a spec names is cut
         into equal contiguous pieces over those mesh axes, the first axis
         major (the reference's layout)."""
-        return tuple(_shard_tree(a, s, self.mesh, self.device)
+        return tuple(_map_specs2(lambda t, sp: _piece(t, sp, self.mesh, self.device), a, s)
                      for a, s in zip(args, self.in_specs))
 
     def run(self, *args, **kw):
@@ -95,15 +119,17 @@ def _piece(x, spec: Spec, mesh, dev: torch.device) -> torch.Tensor:
     return t.contiguous().to(dev)
 
 
-def _shard_tree(tree, specs, mesh, dev):
+def _map_specs2(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree of dicts, lists and named tuples and
+    its spec tree."""
     if isinstance(specs, Spec):
-        return _piece(tree, specs, mesh, dev)
+        return fn(tree, specs)
     if isinstance(tree, dict):
-        return {k: _shard_tree(tree[k], specs[k], mesh, dev) for k in tree}
+        return {k: _map_specs2(fn, tree[k], specs[k]) for k in tree}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*[_shard_tree(a, s, mesh, dev) for a, s in zip(tree, specs)])
+        return type(tree)(*[_map_specs2(fn, a, sp) for a, sp in zip(tree, specs)])
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_shard_tree(a, s, mesh, dev) for a, s in zip(tree, specs))
+        return type(tree)(_map_specs2(fn, a, sp) for a, sp in zip(tree, specs))
     raise TypeError(f"no spec for {type(tree)}")
 
 
@@ -120,6 +146,301 @@ def _meta_tree(init: Callable):
     with FakeTensorMode():
         fake = init(torch.Generator())
     return tree_map(lambda t: _meta(t.shape, t.dtype), fake)
+
+
+# ---------------------------------------------------------------------- #
+#  pieces <-> DTensors
+# ---------------------------------------------------------------------- #
+def _sharded(mesh) -> bool:
+    """A step over ``mesh`` runs DTensors: a mesh of more than one device."""
+    return mesh is not None and mesh.size() > 1
+
+
+def _dp_spec(dp_axes):
+    """The spec entry of the dp axes: one name, or their tuple."""
+    return SR._fsdp(tuple(dp_axes))
+
+
+def _dp_axes(mesh) -> Tuple[str, ...]:
+    """The mesh's dp axes (``("data",)`` with no mesh: the specs a step
+    without a mesh records, which cut nothing)."""
+    return tuple(dp_axes_of(mesh)) if mesh is not None else ("data",)
+
+
+def _wrap(tree, specs, mesh):
+    """Each rank's pieces as DTensors at their specs' placements."""
+    from torch.distributed.tensor import DTensor
+
+    return _map_specs2(lambda t, sp: DTensor.from_local(t, mesh, SR.placements(sp, mesh),
+                                                        run_check=False), tree, specs)
+
+
+def _unwrap(tree, specs, mesh):
+    """DTensors back to this rank's contiguous pieces at their specs'
+    placements (``Spec()``: the whole value)."""
+    return _map_specs2(lambda t, sp: t.redistribute(mesh, SR.placements(sp, mesh))
+                       .to_local().contiguous(), tree, specs)
+
+
+def _replicated(x):
+    """A DTensor scalar (a loss, a partial sum over ranks) made whole on
+    every rank; its backward keeps the gradient replicated, so every rank's
+    contribution reaches the params (``to_local`` alone would drop the
+    reduction); a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def _laid_out_as(grads, params):
+    """Each gradient redistributed to its param's placements.  A param
+    replicated over an axis gets a partial sum there from each rank's
+    backward; the optimizer's casts and roots need it whole (an all-reduce
+    here), else each rank would round its own partial."""
+    from torch.distributed.tensor import DTensor
+
+    def one(g, p):
+        if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+            return g.redistribute(p.device_mesh, p.placements)
+        return g
+
+    return tree_map(one, grads, params)
+
+
+class _Gathered(dict):
+    """A param dict whose DTensor leaves come out with the dp axes dropped
+    from their placements: the FSDP all-gather, right where a layer reads a
+    weight (its backward reduce-scatters the gradient).  A layer run under
+    ``torch.utils.checkpoint`` gathers again in its recomputation, so no
+    gathered weight outlives its layer."""
+
+    def __init__(self, tree, dp_dims: Tuple[int, ...]):
+        super().__init__(tree)
+        self._dp = dp_dims
+
+    def __getitem__(self, key):
+        v = super().__getitem__(key)
+        if isinstance(v, list):
+            return [_Gathered(lp, self._dp) for lp in v]
+        from torch.distributed.tensor import Replicate
+
+        pl = [Replicate() if i in self._dp else p for i, p in enumerate(v.placements)]
+        return v.redistribute(v.device_mesh, pl)
+
+    def get(self, key, default=None):
+        return self[key] if key in self else default
+
+
+def _layer_list(params):
+    """The reference's stacked tree -> the port's model tree: ``layers``
+    unbound into one dict a layer (views; the backward stacks the
+    gradients)."""
+    stacked = params["layers"]
+    keys = list(stacked)
+    layers = [dict(zip(keys, vals)) for vals in zip(*(torch.unbind(stacked[k]) for k in keys))]
+    return {**params, "layers": layers}
+
+
+def _stacked(params):
+    """The port's model tree -> the reference's, the layers stacked."""
+    layers = params["layers"]
+    return {**params, "layers": {k: torch.stack([lp[k] for lp in layers]) for k in layers[0]}}
+
+
+def _model_params(params, mesh):
+    """The stacked params as the model reads them: one dict a layer, and
+    over a mesh each DTensor gathered over the dp axes where it is read."""
+    tree = _layer_list(params)
+    if not _sharded(mesh):
+        return tree
+    names = tuple(mesh.mesh_dim_names)
+    return _Gathered(tree, tuple(i for i, n in enumerate(names) if n in ("pod", "data")))
+
+
+def _run(mesh, fn, *args):
+    """``fn`` under DTensor's implicit replication of plain tensors (RoPE
+    tables, masks, scalars) over a mesh; as it is on one device."""
+    if not _sharded(mesh):
+        return fn(*args)
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with implicit_replication():
+        return fn(*args)
+
+
+# ---------------------------------------------------------------------- #
+#  LM family
+# ---------------------------------------------------------------------- #
+def _lm_module(cfg):
+    return MoE if isinstance(cfg, MoE.MoEConfig) else T
+
+
+def _lm_optimizer(cfg):
+    """Adafactor on ``cosine_schedule(1e-4, 200, 10_000)`` above 20 B params
+    (grok-1: its factored state is the memory floor), else AdamW with bf16
+    moments on ``cosine_schedule(3e-4, 200, 10_000)``: the reference's."""
+    if cfg.n_params() > 20e9:
+        return adafactor(cosine_schedule(1e-4, 200, 10_000))
+    return adamw(cosine_schedule(3e-4, 200, 10_000))
+
+
+def _lm_param_specs(cfg, dp_axes):
+    if isinstance(cfg, MoE.MoEConfig):
+        ep = cfg.pad_experts_to is not None
+        return SR.moe_param_specs(cfg, dp_axes, expert_parallel=ep)
+    return SR.lm_param_specs(cfg, dp_axes)
+
+
+def lm_params_meta(cfg):
+    """Meta stand-ins of an LM's float32 master params in the reference's
+    tree (layers stacked)."""
+    mod = _lm_module(cfg)
+    return _meta_tree(lambda g: _stacked(mod.init_master(g, cfg)))
+
+
+def stack_layers(params):
+    """An LM's params as the port's model holds them (one dict a layer)
+    -> the tree the LM step builders take (the layers stacked, as the
+    reference's)."""
+    return _stacked(params)
+
+
+def build_lm_train(cfg, mesh, shape_dims, torch_device="cuda") -> BuiltStep:
+    """The reference's LM train step: ``value_and_grad`` of the model's
+    ``loss_fn`` under :func:`~repro_torch.distributed.actshard.lm_train_acts`,
+    then :func:`_lm_optimizer`'s update; returns ``(params, opt_state,
+    {"loss", "gnorm"})``, params and optimizer state donated.  Over a mesh
+    the loss is made whole (an all-reduce over the dp axes) before the
+    gradient, so each rank's share of it reaches every gradient."""
+    dev = resolve_device(torch_device)
+    dp_axes = _dp_axes(mesh)
+    mod = _lm_module(cfg)
+    opt = _lm_optimizer(cfg)
+    params_s = lm_params_meta(cfg)
+    opt_s = opt.init(params_s)
+    b, s = shape_dims["batch"], shape_dims["seq"]
+    batch = {"tokens": _meta((b, s), torch.int32), "labels": _meta((b, s), torch.int32)}
+    from repro_torch.distributed.actshard import lm_train_acts
+
+    acts = lm_train_acts(dp_axes, mesh)
+    pspec = _lm_param_specs(cfg, dp_axes)
+    ospec = SR.opt_state_specs(pspec, opt_s)
+    bspec = SR.lm_batch_specs(dp_axes)
+
+    def loss_of(p, bt):
+        return _replicated(mod.loss_fn(_model_params(p, mesh), bt, cfg, acts=acts))
+
+    def step(params, opt_state, batch):
+        loss, grads = value_and_grad(loss_of, params, batch)
+        params, opt_state, gnorm = opt.update(_laid_out_as(grads, params), opt_state, params)
+        return params, opt_state, loss, gnorm
+
+    def train_step(params, opt_state, batch):
+        if _sharded(mesh):
+            params, opt_state, batch = (_wrap(params, pspec, mesh),
+                                        _wrap(opt_state, ospec, mesh),
+                                        _wrap(batch, bspec, mesh))
+        params, opt_state, loss, gnorm = _run(mesh, step, params, opt_state, batch)
+        if _sharded(mesh):
+            params, opt_state = _unwrap(params, pspec, mesh), _unwrap(opt_state, ospec, mesh)
+            loss, gnorm = _unwrap(_replicated(loss), Spec(), mesh), _unwrap(
+                _replicated(gnorm), Spec(), mesh)
+        return params, opt_state, {"loss": loss, "gnorm": gnorm}
+
+    return BuiltStep(fn=train_step, args=(params_s, opt_s, batch),
+                     in_specs=(pspec, ospec, bspec),
+                     out_specs=(pspec, ospec, {"loss": Spec(), "gnorm": Spec()}),
+                     mesh=mesh, device=dev, donate_argnums=(0, 1))
+
+
+def build_lm_prefill(cfg, mesh, shape_dims, torch_device="cuda") -> BuiltStep:
+    """The reference's prompt pass: ``(kv cache, last-token logits)``, the
+    cache ``[L, B, Hkv, S, D]`` at ``Spec(None, dp, None, "model", None)``
+    (the sequence over ``"model"``) and the logits at ``Spec(dp,
+    "model")``."""
+    dev = resolve_device(torch_device)
+    dp_axes = _dp_axes(mesh)
+    mod = _lm_module(cfg)
+    params_s = lm_params_meta(cfg)
+    b, s = shape_dims["batch"], shape_dims["seq"]
+    tokens = _meta((b, s), torch.int32)
+    from repro_torch.distributed.actshard import lm_prefill_acts
+
+    acts = lm_prefill_acts(dp_axes, mesh)
+    pspec = _lm_param_specs(cfg, dp_axes)
+    d = _dp_spec(dp_axes)
+    kv_spec = {"k": Spec(None, d, None, "model", None), "v": Spec(None, d, None, "model", None)}
+    tspec, lspec = Spec(d, None), Spec(d, "model")
+
+    @torch.no_grad()
+    def prefill_step(params, tokens):
+        if _sharded(mesh):
+            params, tokens = _wrap(params, pspec, mesh), _wrap(tokens, tspec, mesh)
+        kv, logits = _run(mesh, mod.prefill, _model_params(params, mesh), tokens, cfg,
+                          None, acts)
+        if _sharded(mesh):
+            kv, logits = _unwrap(kv, kv_spec, mesh), _unwrap(logits, lspec, mesh)
+        return kv, logits
+
+    return BuiltStep(fn=prefill_step, args=(params_s, tokens), in_specs=(pspec, tspec),
+                     out_specs=(kv_spec, lspec), mesh=mesh, device=dev)
+
+
+def build_lm_decode(cfg, mesh, shape_dims, torch_device="cuda") -> BuiltStep:
+    """The reference's decode step: one token a row against a full cache at
+    position ``seq - 1``; returns ``(logits, kv)``, the cache donated.  With
+    a batch of at least the dp shards the batch splits over the dp axes and
+    the cache's sequence over ``"model"``; below that (one long sequence)
+    the tokens replicate and the cache's sequence splits over the whole
+    mesh.  The decode attention reads the sequence whole: each layer
+    gathers its cache's sequence first (a flash-decoding combine over the
+    shards is later work)."""
+    dev = resolve_device(torch_device)
+    dp_axes = _dp_axes(mesh)
+    mod = _lm_module(cfg)
+    params_s = lm_params_meta(cfg)
+    b, s = shape_dims["batch"], shape_dims["seq"]
+    hd = cfg.head_dim
+    kv = {k: _meta((cfg.n_layers, b, cfg.n_kv_heads, s, hd), cfg.cdtype) for k in ("k", "v")}
+    token = _meta((b,), torch.int32)
+    from repro_torch.distributed.actshard import lm_decode_acts
+
+    acts = lm_decode_acts(dp_axes, mesh)
+    pspec = _lm_param_specs(cfg, dp_axes)
+    d = _dp_spec(dp_axes)
+    ndp = 1
+    if mesh is not None:
+        names = tuple(mesh.mesh_dim_names)
+        for a in dp_axes:
+            ndp *= mesh.size(names.index(a))
+    if b >= ndp:
+        tok_spec = Spec(d)
+        kv_spec = {"k": Spec(None, d, None, "model", None),
+                   "v": Spec(None, d, None, "model", None)}
+        logit_spec = Spec(d, "model")
+    else:
+        flat = tuple(dp_axes) + ("model",)
+        tok_spec = Spec()
+        kv_spec = {"k": Spec(None, None, None, flat, None),
+                   "v": Spec(None, None, None, flat, None)}
+        logit_spec = Spec(None, "model")
+
+    @torch.no_grad()
+    def decode(params, token, kv):
+        if _sharded(mesh):
+            params, token, kv = (_wrap(params, pspec, mesh), _wrap(token, tok_spec, mesh),
+                                 _wrap(kv, kv_spec, mesh))
+        logits, kv = _run(mesh, mod.decode_step, _model_params(params, mesh), token, kv,
+                          s - 1, cfg, acts)
+        if _sharded(mesh):
+            logits, kv = _unwrap(logits, logit_spec, mesh), _unwrap(kv, kv_spec, mesh)
+        return logits, kv
+
+    return BuiltStep(fn=decode, args=(params_s, token, kv),
+                     in_specs=(pspec, tok_spec, kv_spec), out_specs=(logit_spec, kv_spec),
+                     mesh=mesh, device=dev, donate_argnums=(2,))
 
 
 # ---------------------------------------------------------------------- #
@@ -252,6 +573,87 @@ def build_gnn_train(cfg: G.GNNConfig, mesh, dims: Dict[str, int],
 
 
 # ---------------------------------------------------------------------- #
+#  recsys family
+# ---------------------------------------------------------------------- #
+def fm_optimizer():
+    """The FM train step's optimizer: AdamW on ``cosine_schedule(1e-3,
+    100, 10_000)``, as the reference's."""
+    return adamw(cosine_schedule(1e-3, 100, 10_000))
+
+
+def build_fm_step(cfg: R.FMConfig, mesh, case_kind: str, dims,
+                  torch_device="cuda") -> BuiltStep:
+    """The reference's FM steps: ``train`` (``value_and_grad`` of
+    ``loss_fn`` + AdamW; returns ``(params, opt_state, {"loss", "gnorm"})``),
+    ``serve`` (the logits of a batch) and ``retrieval`` (one query's scores
+    over candidate rows).  The table and its linear weights are row-split
+    over ``"model"`` (a lookup sums over the row shards), the batch over the
+    dp axes; K4 runs on each rank's batch rows."""
+    dev = resolve_device(torch_device)
+    dp_axes = _dp_axes(mesh)
+    d = _dp_spec(dp_axes)
+    params_s = _meta_tree(lambda g: R.init(g, cfg))
+    pspec = {"emb": Spec("model", None), "w1": Spec("model"), "bias": Spec()}
+
+    def wrap(tree, specs):
+        return _wrap(tree, specs, mesh) if _sharded(mesh) else tree
+
+    def unwrap(tree, specs):
+        return _unwrap(tree, specs, mesh) if _sharded(mesh) else tree
+
+    if case_kind == "train":
+        opt = fm_optimizer()
+        opt_s = opt.init(params_s)
+        batch = {"x": _meta((dims["batch"], cfg.n_fields), torch.int32),
+                 "y": _meta((dims["batch"],), torch.float32)}
+        bspec = {"x": Spec(d, None), "y": Spec(d)}
+        ospec = SR.opt_state_specs(pspec, opt_s)
+
+        def step(params, opt_state, batch):
+            loss, grads = value_and_grad(
+                lambda p, b: _replicated(R.loss_fn(p, b, cfg)), params, batch)
+            params, opt_state, gnorm = opt.update(_laid_out_as(grads, params), opt_state,
+                                                  params)
+            return params, opt_state, loss, gnorm
+
+        def train_step(params, opt_state, batch):
+            params, opt_state, loss, gnorm = _run(
+                mesh, step, wrap(params, pspec), wrap(opt_state, ospec), wrap(batch, bspec))
+            return (unwrap(params, pspec), unwrap(opt_state, ospec),
+                    {"loss": unwrap(_replicated(loss), Spec()),
+                     "gnorm": unwrap(_replicated(gnorm), Spec())})
+
+        return BuiltStep(fn=train_step, args=(params_s, opt_s, batch),
+                         in_specs=(pspec, ospec, bspec),
+                         out_specs=(pspec, ospec, {"loss": Spec(), "gnorm": Spec()}),
+                         mesh=mesh, device=dev, donate_argnums=(0, 1))
+    if case_kind == "serve":
+        x = _meta((dims["batch"], cfg.n_fields), torch.int32)
+
+        @torch.no_grad()
+        def serve_step(params, x):
+            out = _run(mesh, R.forward, wrap(params, pspec), wrap(x, Spec(d, None)), cfg)
+            return unwrap(out, Spec(d))
+
+        return BuiltStep(fn=serve_step, args=(params_s, x), in_specs=(pspec, Spec(d, None)),
+                         out_specs=Spec(d), mesh=mesh, device=dev)
+    if case_kind == "retrieval":
+        x = _meta((1, cfg.n_fields), torch.int32)
+        cand = _meta((dims["n_candidates"],), torch.int32)
+
+        @torch.no_grad()
+        def retrieve(params, x, cand_rows):
+            out = _run(mesh, R.retrieval_scores, wrap(params, pspec),
+                       wrap(x, Spec(None, None)), wrap(cand_rows, Spec(d)), cfg)
+            return unwrap(out, Spec(d))
+
+        return BuiltStep(fn=retrieve, args=(params_s, x, cand),
+                         in_specs=(pspec, Spec(None, None), Spec(d)), out_specs=Spec(d),
+                         mesh=mesh, device=dev)
+    raise ValueError(case_kind)
+
+
+# ---------------------------------------------------------------------- #
 #  paper-gwq: the sharded window-query data plane
 # ---------------------------------------------------------------------- #
 def _rows_plan(gather, seg, num_segments: int, num_rows: int, dev):
@@ -310,7 +712,7 @@ def build_gwq_step(plan_dims: Dict[str, int], mesh, torch_device="cuda") -> Buil
         from repro_torch.kernels.segment_reduce.ops import segment_sum
 
         p1, p2 = plan if plan is not None else make_plan(p1g, p1s, p2g, p2s)
-        vals = torch.as_tensor(vals, device=dev)
+        vals = vals if isinstance(vals, torch.Tensor) else torch.as_tensor(vals, device=dev)
         t = combine(segment_sum(p1, vals), nb - nb // bf if bf else 0)
         return combine(segment_sum(p2, t), n - n // bf if bf else 0)
 

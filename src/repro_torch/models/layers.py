@@ -85,18 +85,59 @@ def mlp_apply(params, x, act=F.relu, final_act: bool = False):
     return x
 
 
-def _chunk_nll(xi, w, li, z_loss: float):
+def _chunk_nll(xi, w, li, z_loss: float, acts=None):
     """Summed NLL (+ z-loss) of one sequence chunk: ``xi`` [B, c, D] against
     ``w`` [D, V] (already in ``xi``'s dtype), labels ``li`` [B, c]."""
-    logits = (xi @ w).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    nll = lse - logits.gather(-1, li[..., None].long()).squeeze(-1)
+    from repro_torch.distributed.actshard import constrain
+
+    logits = constrain((xi @ w).float(), acts, "loss_logits")
+    lse, ll = _lse_and_label_logit(logits, li)
+    nll = lse - ll
     if z_loss:
         nll = nll + z_loss * torch.square(lse)
     return torch.sum(nll)
 
 
-def lm_loss_fused(x, w, labels, z_loss: float = 0.0, chunk: int = 512):
+def _lse_and_label_logit(logits, labels):
+    """``(logsumexp over the last dimension, each row's logit at its
+    label)``.  On a plain tensor: ``torch.logsumexp`` and a gather.  On
+    vocab-split DTensor logits, Megatron's vocab-parallel form: the row max
+    over the shards (an all-reduce of a max, held constant), then on each
+    rank (``local_map``) its own shard's sum of exponentials and its masked
+    label logit (the reference's masked sum: exact, one term is not zero),
+    each a partial sum over the vocab shards, combined by an all-reduce.
+    No rank gathers the logits, forward or backward.  (The vocab splits
+    evenly over its shards, as the specs split it.)"""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(logits, DTensor):
+        ll = logits.gather(-1, labels[..., None].long()).squeeze(-1)
+        return torch.logsumexp(logits, dim=-1), ll
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    pl = list(logits.placements)
+    vocab_dims = [i for i, p in enumerate(pl) if p == Shard(last)]
+    index = 0
+    for i in vocab_dims:
+        index = index * mesh.size(i) + mesh.get_local_rank(i)
+    row_pl = [Replicate() if i in vocab_dims else p for i, p in enumerate(pl)]
+    part_pl = [Partial() if i in vocab_dims else p for i, p in enumerate(pl)]
+    m = logits.detach().amax(dim=-1).redistribute(mesh, row_pl)
+    labels = labels.redistribute(mesh, row_pl)
+
+    def local(lg, m_l, lab):
+        size = lg.shape[-1]
+        ids = torch.arange(index * size, (index + 1) * size, device=lg.device)
+        se = torch.exp(lg - m_l[..., None]).sum(dim=-1)
+        ll = torch.where(ids == lab[..., None], lg, 0.0).sum(dim=-1)
+        return se, ll
+
+    se, ll = local_map(local, out_placements=(part_pl, part_pl),
+                       in_placements=(pl, row_pl, row_pl), device_mesh=mesh)(logits, m, labels)
+    return m + se.redistribute(mesh, row_pl).log(), ll.redistribute(mesh, row_pl)
+
+
+def lm_loss_fused(x, w, labels, z_loss: float = 0.0, chunk: int = 512, acts=None):
     """Fused unembed + cross entropy, chunked over the sequence axis.
 
     Never builds the whole [B, S, V] logits: each chunk's logits are
@@ -107,8 +148,13 @@ def lm_loss_fused(x, w, labels, z_loss: float = 0.0, chunk: int = 512):
     added in order, as the reference's scan adds them.
 
     x: [B, S, D] final hidden states; w: [D, V]; labels: [B, S].  Returns
-    the mean over B * S."""
+    the mean over B * S.  Over a mesh (DTensors) the hidden states are
+    anchored at ``acts["loss_hidden"]`` and each chunk's logits at
+    ``acts["loss_logits"]``, as the reference anchors them."""
+    from repro_torch.distributed.actshard import constrain
+
     b, s, _ = x.shape
+    x = constrain(x, acts, "loss_hidden")
     chunk = min(chunk, s)
     while s % chunk:
         chunk -= 1
@@ -117,9 +163,9 @@ def lm_loss_fused(x, w, labels, z_loss: float = 0.0, chunk: int = 512):
     for c0 in range(0, s, chunk):
         xi, li = x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
         if torch.is_grad_enabled():
-            part = checkpoint(_chunk_nll, xi, wc, li, z_loss, use_reentrant=False)
+            part = checkpoint(_chunk_nll, xi, wc, li, z_loss, acts, use_reentrant=False)
         else:
-            part = _chunk_nll(xi, wc, li, z_loss)
+            part = _chunk_nll(xi, wc, li, z_loss, acts)
         total = total + part
     return total / (b * s)
 

@@ -29,9 +29,11 @@ The dispatch is differentiable: its gathers, index writes and
 ``torch.bmm``s carry gradients to the tokens, gates and expert weights,
 and the aux loss carries them to the router.
 
-Only the single-device dispatch is ported; the reference's ``shard_map``
-branch (expert FFN tensor-parallel over a mesh) waits for the TPU-mesh
-modules, ROADMAP Queue 1 item 8e.
+Over a mesh, ``acts["moe_shard"]`` (:mod:`repro_torch.distributed.actshard`)
+takes the reference's expert-TP branch (:func:`_moe_shard_ffn`): token
+groups over the dp axes, each expert's FFN hidden dimension a local shard
+over ``"model"``, one sum over ``"model"`` combining the down-projection
+partials, the aux loss averaged over the token axes.
 
 Functional API:
     params = init(generator, cfg)                  serving dtypes
@@ -51,7 +53,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.actshard import constrain, is_dtensor
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -315,98 +319,187 @@ def group_count(t: int, cfg: MoEConfig) -> int:
     return g
 
 
-def moe_ffn(lp, x, cfg: MoEConfig, mesh=None):
+def moe_ffn(lp, x, cfg: MoEConfig, acts=None):
     """x: [B, S, d] -> ([B, S, d], aux scalar): the group-local dispatch
-    over ``dispatch_groups`` groups of consecutive tokens."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the MoE dispatch over a mesh (the reference's shard_map branch) is "
-            "not ported: ROADMAP Queue 1 item 8e")
+    over ``dispatch_groups`` groups of consecutive tokens; with
+    ``acts["moe_shard"]``, the expert-TP branch."""
+    moe_shard = acts.get("moe_shard") if acts else None
+    if moe_shard is not None:
+        return _moe_shard_ffn(lp, x, cfg, moe_shard)
     b, s, d = x.shape
     g = group_count(b * s, cfg)
     out, aux = _dispatch(x.reshape(g, b * s // g, d), lp, cfg)
     return out.reshape(b, s, d), aux.mean()
 
 
-def _ffn(cfg: MoEConfig, mesh, auxes: list):
+def _local_groups(xl, weights: dict, cfg: MoEConfig, n_groups: int):
+    """The dispatch of one rank's ``n_groups`` groups, one group at a time
+    (the reference's scan), each under ``torch.utils.checkpoint`` in
+    training so the backward recomputes one group's buffers at a time.
+    Returns the FFN's output (a partial sum when ``weights`` hold an FFN
+    shard) and the mean of the groups' aux."""
+    b, s, d = xl.shape
+    xt = xl.reshape(n_groups, b * s // n_groups, d)
+
+    def one(xg):
+        out, aux = _dispatch(xg[None], weights, cfg)
+        return out[0], aux[0]
+
+    outs, auxes = [], []
+    for xg in xt.unbind(0):  # its backward stacks the groups' gradients once
+        if torch.is_grad_enabled():
+            out, aux = checkpoint(one, xg, use_reentrant=False)
+        else:
+            out, aux = one(xg)
+        outs.append(out)
+        auxes.append(aux)
+    return torch.stack(outs).reshape(b, s, d), torch.stack(auxes).mean()
+
+
+def _moe_shard_ffn(lp, x, cfg: MoEConfig, moe_shard):
+    """The reference's ``shard_map`` branch.  ``moe_shard = (mesh, token
+    axes, tp axis)``.  Token groups are split over the token axes and
+    replicated over ``tp``; the router is replicated; each rank holds the
+    ``tp`` shard of every expert's (and the shared experts') FFN hidden
+    dimension, so its output is a partial sum, and one all-reduce over
+    ``tp`` combines them.  The aux loss is each rank's mean over its groups,
+    averaged over the token axes (not over ``tp``: every ``tp`` rank has the
+    same groups).  On plain tensors (a mesh of one device) it is the same
+    loop with no collective.  The reference has no all-to-all, and neither
+    has this."""
+    mesh, token_axes, tp = moe_shard
+    b, s, d = x.shape
+    g = group_count(b * s, cfg)
+    names = ["router", "we_gate", "we_up", "we_down"]
+    if cfg.n_shared_experts:
+        names += ["ws_gate", "ws_up", "ws_down"]
+    if not is_dtensor(x):
+        return _local_groups(x, {n: lp[n] for n in names}, cfg, g)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    dims = tuple(x.device_mesh.mesh_dim_names)
+    ntok = 1
+    for a in token_axes:
+        ntok *= x.device_mesh.size(dims.index(a))
+    if g % ntok or b % ntok:
+        raise ValueError(f"{g} dispatch groups of {b} rows do not split over "
+                         f"{ntok} token shards")
+
+    def pl(tok, model):
+        return [tok if n in token_axes else model if n == tp else Replicate()
+                for n in dims]
+
+    # the tp shard of each FFN's hidden dimension: we_* [E, d, ff] and
+    # [E, ff, d], ws_* [d, F] and [F, d]
+    ff_dim = {"router": None, "we_gate": 2, "we_up": 2, "we_down": 1,
+              "ws_gate": 1, "ws_up": 1, "ws_down": 0}
+    w_pl = [pl(Replicate(), Replicate() if ff_dim[n] is None else Shard(ff_dim[n]))
+            for n in names]
+    x_pl = pl(Shard(0), Replicate())
+    ws = [lp[n].redistribute(x.device_mesh, p) for n, p in zip(names, w_pl)]
+    # Each rank differentiates its own tokens through its own FFN shard, so
+    # the gradients it returns are partial sums: over the token axes for
+    # every weight, over tp for the tokens and the router (each tp rank
+    # reaches them through its shard only).  The aux loss, computed alike
+    # on every tp rank, enters the sum once: each rank returns its share.
+    g_pl = [pl(Partial(), Partial() if ff_dim[n] is None else Shard(ff_dim[n]))
+            for n in names]
+    ntp = x.device_mesh.size(dims.index(tp))
+
+    def body(xl, *wl):
+        out, aux = _local_groups(xl, dict(zip(names, wl)), cfg, g // ntok)
+        return out, aux / (ntok * ntp)
+
+    out, aux = local_map(body, out_placements=(pl(Shard(0), Partial()),
+                                               pl(Partial(), Partial())),
+                         in_placements=(x_pl, *w_pl),
+                         in_grad_placements=(pl(Shard(0), Partial()), *g_pl),
+                         device_mesh=x.device_mesh)(
+        x.redistribute(x.device_mesh, x_pl), *ws)
+    rep = [Replicate()] * len(dims)
+    return (out.redistribute(x.device_mesh, pl(Shard(0), Replicate())),
+            aux.redistribute(x.device_mesh, rep))
+
+
+
+def _ffn(cfg: MoEConfig, acts, auxes: list):
     """The layer loops' feed-forward: :func:`moe_ffn`, its aux appended to
     ``auxes``."""
     def ffn(lp, xn):
-        y, aux = moe_ffn(lp, xn, cfg, mesh)
+        y, aux = moe_ffn(lp, xn, cfg, acts)
         auxes.append(aux)
         return y
     return ffn
 
 
-def _embed(params, tokens, cfg: MoEConfig):
-    return params["embed"][tokens.long()].to(cfg.cdtype)
-
-
 def layer_fwd(lp, x, cfg: MoEConfig, cos, sin, positions=None,
-              attn_backend: Optional[str] = None, mesh=None):
+              attn_backend: Optional[str] = None, acts=None):
     """One layer over ``x`` [B, S, d]: (the layer's output, its aux)."""
     q, k, v = T._qkv(lp, x, cfg, positions, cos, sin)
     o = T.attention(q, k, v, causal=True, local_window=cfg.local_window,
                     backend=attn_backend, q_chunk=cfg.attn_q_chunk,
                     kv_chunk=cfg.attn_kv_chunk)
     auxes = []
-    return T._mix(lp, x, o, cfg, _ffn(cfg, mesh, auxes)), auxes[0]
+    return T._mix(lp, x, o, cfg, _ffn(cfg, acts, auxes)), auxes[0]
 
 
 def forward(params, tokens, cfg: MoEConfig, attn_backend: Optional[str] = None,
-            mesh=None):
+            acts=None):
     """tokens: int [B, S] -> (logits float32 [B, S, V], the layers' aux
-    summed).  ``mesh`` is not supported yet (see :func:`moe_ffn`)."""
-    x = _embed(params, tokens, cfg)
+    summed)."""
+    x = constrain(T.embed(params, tokens, cfg), acts, "res")
     cos, sin = L.rope_freqs(cfg.head_dim, x.shape[1], cfg.rope_theta, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:  # aux in layer order, as the reference's scan carries it
-        x, a = layer_fwd(lp, x, cfg, cos, sin, attn_backend=attn_backend, mesh=mesh)
+        x, a = layer_fwd(lp, x, cfg, cos, sin, attn_backend=attn_backend, acts=acts)
+        x = constrain(x, acts, "res")
         aux = aux + a
     x = L.rmsnorm(x, params["ln_f"])
-    return (x @ T._unembed(params, cfg)).float(), aux
+    return constrain((x @ T._unembed(params, cfg)).float(), acts, "logits"), aux
 
 
 def forward_hidden(params, tokens, cfg: MoEConfig, attn_backend: Optional[str] = None,
-                   mesh=None):
+                   acts=None):
     """tokens -> (final hidden states [B, S, d], the layers' aux summed in
     layer order); each layer under ``torch.utils.checkpoint`` in training
     when ``cfg.remat`` is set."""
-    x = _embed(params, tokens, cfg)
+    x = constrain(T.embed(params, tokens, cfg), acts, "res")
     cos, sin = L.rope_freqs(cfg.head_dim, tokens.shape[1], cfg.rope_theta, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def layer(lp, x, cfg, cos, sin, positions=None, attn_backend=None):
-        return layer_fwd(lp, x, cfg, cos, sin, positions, attn_backend, mesh)
+        return layer_fwd(lp, x, cfg, cos, sin, positions, attn_backend, acts)
 
     for lp in params["layers"]:
         x, a = T.run_layer(layer, lp, x, cfg, cos, sin, attn_backend)
+        x = constrain(x, acts, "res")
         aux = aux + a
     return L.rmsnorm(x, params["ln_f"]), aux
 
 
-def loss_fn(params, batch, cfg: MoEConfig, attn_backend: Optional[str] = None, mesh=None):
+def loss_fn(params, batch, cfg: MoEConfig, attn_backend: Optional[str] = None, acts=None):
     """The dense model's next-token loss plus the layers' load-balance aux."""
-    x, aux = forward_hidden(params, batch["tokens"], cfg, attn_backend, mesh)
+    x, aux = forward_hidden(params, batch["tokens"], cfg, attn_backend, acts)
     return L.lm_loss_fused(x[:, :-1], T._unembed(params, cfg), batch["labels"][:, 1:],
-                           cfg.z_loss) + aux
+                           cfg.z_loss, acts=acts) + aux
 
 
 # ---------------------------- serving ---------------------------------- #
 def prefill(params, tokens, cfg: MoEConfig, attn_backend: Optional[str] = None,
-            mesh=None):
+            acts=None):
     """Run the prompt, return (kv_cache, last-token logits); kv stacked
     [L, B, Hkv, S, D], as :func:`repro_torch.models.transformer.prefill`."""
-    x, ks, vs = T._layers(params, _embed(params, tokens, cfg), cfg, attn_backend,
-                          _ffn(cfg, mesh, []))
-    logits = (x[:, -1] @ T._unembed(params, cfg)).float()
+    x, ks, vs = T._layers(params, T.embed(params, tokens, cfg), cfg, attn_backend,
+                          _ffn(cfg, acts, []), acts)
+    logits = constrain((x[:, -1] @ T._unembed(params, cfg)).float(), acts, "logits")
     return {"k": torch.stack(ks), "v": torch.stack(vs)}, logits
 
 
-def decode_step(params, token, kv, pos: int, cfg: MoEConfig, mesh=None):
+def decode_step(params, token, kv, pos: int, cfg: MoEConfig, acts=None):
     """One token for the whole batch against a full KV cache (updated in
     place): (logits [B, V], kv).  Each token is a dispatch group of its
     own (B <= ``dispatch_groups``), so every expert's weights are read every
     step (capacity 1), as in the reference."""
-    x = T._decode_layers(params, token, kv, pos, cfg, _ffn(cfg, mesh, []))
-    return (x[:, 0] @ T._unembed(params, cfg)).float(), kv
+    x = T._decode_layers(params, token, kv, pos, cfg, _ffn(cfg, acts, []), acts)
+    return constrain((x[:, 0] @ T._unembed(params, cfg)).float(), acts, "logits"), kv

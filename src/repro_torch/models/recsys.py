@@ -19,6 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.actshard import is_dtensor
 from repro_torch.kernels.fm_interaction.ops import fm_second_order
 
 
@@ -77,14 +78,44 @@ def _rows(cfg: FMConfig, x):
     return offs[None, :] + (x.long() % 2**32) % sizes[None, :]
 
 
+
+def _lookup(table, rows):
+    """``table[rows]``.  A DTensor table (rows over ``"model"``) takes
+    ``F.embedding``, which masks the rows another rank holds; the result
+    is made whole over the row shards (an all-reduce)."""
+    if not is_dtensor(table):
+        return table[rows]
+    from torch.distributed.tensor import Replicate
+
+    import torch.nn.functional as F
+
+    vec = table.dim() == 1
+    out = F.embedding(rows, table[:, None] if vec else table)
+    out = out.redistribute(out.device_mesh, [Replicate() if p.is_partial() else p
+                                             for p in out.placements])
+    return out[..., 0] if vec else out
+
+
+def _second_order(emb):
+    """:func:`fm_second_order` on each rank's batch rows of a DTensor
+    (``local_map``: K4 sees a plain contiguous tensor)."""
+    if not is_dtensor(emb):
+        return fm_second_order(emb)
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = list(emb.placements)
+    return local_map(fm_second_order, out_placements=pl, in_placements=(pl,),
+                     device_mesh=emb.device_mesh)(emb)
+
+
 def forward(params, x, cfg: FMConfig):
     """x: int32 [B, F] -> logits float32 [B].  The FM interaction goes
     through :func:`fm_second_order`: kernel K4 on a CUDA tensor, its plain
     version on a CPU tensor."""
     rows = _rows(cfg, x)
-    emb = params["emb"][rows]  # [B, F, K]
-    lin = params["w1"][rows].sum(dim=-1)  # [B]
-    return params["bias"].float() + lin.float() + fm_second_order(emb.float())
+    emb = _lookup(params["emb"], rows)  # [B, F, K]
+    lin = _lookup(params["w1"], rows).sum(dim=-1)  # [B]
+    return params["bias"].float() + lin.float() + _second_order(emb.float())
 
 
 def loss_fn(params, batch, cfg: FMConfig):
@@ -116,5 +147,5 @@ def retrieval_scores(params, query_x, cand_rows, cfg: FMConfig):
     """Score 1 query against N candidate items: batched dot in embedding
     space.  cand_rows: int [N] embedding rows."""
     rows = _rows(cfg, query_x)  # [1, F]
-    q = params["emb"][rows[0]].sum(dim=0)  # [K]
-    return params["emb"][cand_rows.long()] @ q
+    q = _lookup(params["emb"], rows[0]).sum(dim=0)  # [K]
+    return _lookup(params["emb"], cand_rows.long()) @ q

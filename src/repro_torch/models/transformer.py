@@ -23,6 +23,12 @@ Functional API:
     loss   = loss_fn(params, batch, cfg)
     kv, logits = prefill(params, tokens, cfg)
     logits, kv = decode_step(params, token, kv, pos, cfg)
+
+Each takes ``acts=``, the reference's activation layouts
+(:mod:`repro_torch.distributed.actshard`): over a mesh the params and
+tokens are DTensors and the residual stream, logits and loss are anchored
+where the reference anchors them; on plain tensors ``acts`` changes
+nothing.
 """
 
 from __future__ import annotations
@@ -31,8 +37,10 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.actshard import constrain, is_dtensor
 from repro_torch.kernels.flash_attention.ref import decode_ref
 from repro_torch.models import layers as L
 from repro_torch.models.attention import attention
@@ -143,6 +151,23 @@ def init_master(generator: torch.Generator, cfg: TransformerConfig):
     return init(generator, cfg, master_dtype)
 
 
+def embed(params, tokens, cfg: TransformerConfig):
+    """The token rows of the embedding, in the compute dtype.  A DTensor
+    table (vocab over ``"model"``) takes ``F.embedding``, whose lookup
+    masks the rows another rank holds; the rows are then summed over the
+    vocab shards (an all-reduce)."""
+    table = params["embed"]
+    if is_dtensor(table):
+        from torch.distributed.tensor import Replicate
+
+        rows = F.embedding(tokens.long(), table)
+        rows = rows.redistribute(rows.device_mesh, [Replicate() if p.is_partial() else p
+                                                    for p in rows.placements])
+        return rows.to(cfg.cdtype)
+    return table[tokens.long()].to(cfg.cdtype)
+
+
+
 def _unembed(params, cfg: TransformerConfig):
     w = params.get("unembed")
     w = w if w is not None else params["embed"].T
@@ -152,17 +177,61 @@ def _unembed(params, cfg: TransformerConfig):
 def _qkv(lp, x, cfg: TransformerConfig, positions, cos, sin):
     b, s, _ = x.shape
     hd = cfg.head_dim
-    xn = L.rmsnorm(x, lp["ln1"])
+    xn = _whole_sequence(L.rmsnorm(x, lp["ln1"]))
     cd = cfg.cdtype
-    q = (xn @ lp["wq"].to(cd)).reshape(b, s, cfg.n_heads, hd)
-    k = (xn @ lp["wk"].to(cd)).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (xn @ lp["wv"].to(cd)).reshape(b, s, cfg.n_kv_heads, hd)
+    q = _split_heads(xn @ lp["wq"].to(cd), cfg.n_heads, hd)
+    k = _split_heads(xn @ lp["wk"].to(cd), cfg.n_kv_heads, hd)
+    v = _split_heads(xn @ lp["wv"].to(cd), cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = L.rmsnorm(q, lp["q_norm"])
         k = L.rmsnorm(k, lp["k_norm"])
     q = L.apply_rope(q.transpose(1, 2), cos, sin, positions).contiguous()  # [B, H, S, D]
     k = L.apply_rope(k.transpose(1, 2), cos, sin, positions).contiguous()
     return q, k, v.transpose(1, 2).contiguous()
+
+
+def _whole_sequence(x):
+    """A DTensor residual [B, S, d] split over its sequence (the ``res``
+    layout) gathered over it before a projection (sequence parallelism's
+    all-gather); a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = [Replicate() if p == Shard(1) else p for p in x.placements]
+    return x.redistribute(x.device_mesh, pl) if pl != list(x.placements) else x
+
+
+def _merge_heads(o):
+    """[B, H, S, D] -> [B, S, H * D].  A DTensor whose heads are not split
+    (a head count the model axis does not divide) is merged on each rank's
+    own piece (``local_map``), so the gradient coming back, split over
+    H * D, is gathered before it is unflattened into heads."""
+    b, h, s, d = o.shape
+    if not is_dtensor(o) or any(p.is_shard(1) for p in o.placements):
+        return o.transpose(1, 2).reshape(b, s, h * d)
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = list(o.placements)
+    return local_map(lambda t: t.transpose(1, 2).reshape(t.shape[0], s, h * d),
+                     out_placements=pl, in_placements=(pl,),
+                     device_mesh=o.device_mesh)(o)
+
+
+def _split_heads(y, heads: int, hd: int):
+    """[B, S, heads * hd] -> [B, S, heads, hd].  A DTensor whose last
+    dimension is split over a mesh axis that does not divide ``heads`` is
+    gathered over that axis first (a shard would cut a head)."""
+    b, s = y.shape[:2]
+    if is_dtensor(y):
+        from torch.distributed.tensor import Replicate, Shard
+
+        mesh = y.device_mesh
+        pl = [Replicate() if p == Shard(2) and heads % mesh.size(i) else p
+              for i, p in enumerate(y.placements)]
+        if pl != list(y.placements):
+            y = y.redistribute(mesh, pl)
+    return y.reshape(b, s, heads, hd)
 
 
 def _dense_ffn(lp, xn):
@@ -174,34 +243,32 @@ def _dense_ffn(lp, xn):
 def _mix(lp, x, o, cfg: TransformerConfig, ffn=_dense_ffn):
     """The residual adds around attention output ``o`` [B, H, S, D] and the
     layer's feed-forward ``ffn(lp, xn)`` (the MoE model passes its own)."""
-    b, s = x.shape[:2]
-    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
-    x = x + o @ lp["wo"].to(cfg.cdtype)
-    return x + ffn(lp, L.rmsnorm(x, lp["ln2"]))
+    x = x + _merge_heads(o) @ lp["wo"].to(cfg.cdtype)
+    return x + ffn(lp, _whole_sequence(L.rmsnorm(x, lp["ln2"])))
 
 
 def _layers(params, x, cfg: TransformerConfig, attn_backend: Optional[str],
-            ffn=_dense_ffn):
+            ffn=_dense_ffn, acts=None):
     """Run every layer over the prompt: (hidden states, per-layer k, v)."""
     cos, sin = L.rope_freqs(cfg.head_dim, x.shape[1], cfg.rope_theta, x.device)
     ks, vs = [], []
+    x = constrain(x, acts, "res")
     for lp in params["layers"]:
         q, k, v = _qkv(lp, x, cfg, None, cos, sin)
         o = attention(q, k, v, causal=True, local_window=cfg.local_window,
                       backend=attn_backend, q_chunk=cfg.attn_q_chunk,
                       kv_chunk=cfg.attn_kv_chunk)
-        x = _mix(lp, x, o, cfg, ffn)
+        x = constrain(_mix(lp, x, o, cfg, ffn), acts, "res")
         ks.append(k)
         vs.append(v)
     return L.rmsnorm(x, params["ln_f"]), ks, vs
 
 
 def forward(params, tokens, cfg: TransformerConfig,
-            attn_backend: Optional[str] = None):
+            attn_backend: Optional[str] = None, acts=None):
     """tokens: int [B, S] -> logits float32 [B, S, V]."""
-    x = params["embed"][tokens.long()].to(cfg.cdtype)
-    x, _, _ = _layers(params, x, cfg, attn_backend)
-    return (x @ _unembed(params, cfg)).float()
+    x, _, _ = _layers(params, embed(params, tokens, cfg), cfg, attn_backend, acts=acts)
+    return constrain((x @ _unembed(params, cfg)).float(), acts, "logits")
 
 
 def layer_fwd(lp, x, cfg: TransformerConfig, cos, sin, positions=None,
@@ -225,23 +292,23 @@ def run_layer(layer_fn, lp, x, cfg, cos, sin, attn_backend):
 
 
 def forward_hidden(params, tokens, cfg: TransformerConfig, layer_fn=layer_fwd,
-                   attn_backend: Optional[str] = None):
+                   attn_backend: Optional[str] = None, acts=None):
     """tokens -> final hidden states [B, S, D] (pre-unembed)."""
-    x = params["embed"][tokens.long()].to(cfg.cdtype)
+    x = constrain(embed(params, tokens, cfg), acts, "res")
     cos, sin = L.rope_freqs(cfg.head_dim, tokens.shape[1], cfg.rope_theta, x.device)
     for lp in params["layers"]:
-        x = run_layer(layer_fn, lp, x, cfg, cos, sin, attn_backend)
+        x = constrain(run_layer(layer_fn, lp, x, cfg, cos, sin, attn_backend), acts, "res")
     return L.rmsnorm(x, params["ln_f"])
 
 
 def loss_fn(params, batch, cfg: TransformerConfig, layer_fn=layer_fwd,
-            attn_backend: Optional[str] = None):
+            attn_backend: Optional[str] = None, acts=None):
     """Next-token loss of ``batch`` ({"tokens", "labels"} [B, S]): the fused
     chunked cross entropy (+ z-loss) of positions 0..S-2 against labels
     1..S-1, the mean over B * (S - 1)."""
-    x = forward_hidden(params, batch["tokens"], cfg, layer_fn, attn_backend)
+    x = forward_hidden(params, batch["tokens"], cfg, layer_fn, attn_backend, acts)
     return L.lm_loss_fused(x[:, :-1], _unembed(params, cfg), batch["labels"][:, 1:],
-                           cfg.z_loss)
+                           cfg.z_loss, acts=acts)
 
 
 def cache_update_add(cache, new, pos: int):
@@ -249,39 +316,67 @@ def cache_update_add(cache, new, pos: int):
 
     The reference adds a one-hot mask into a zero-initialized cache; the
     port writes the slot in place, which gives the same values because the
-    free space is zero.  Returns ``cache`` (updated in place)."""
-    cache[:, :, pos] = new
+    free space is zero.  Returns ``cache`` (updated in place).  A DTensor
+    cache is written in place on the rank whose sequence piece holds
+    ``pos``, from ``new`` laid out as the cache's batch and heads."""
+    if not is_dtensor(cache):
+        cache[:, :, pos] = new
+        return cache
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, pl = cache.device_mesh, list(cache.placements)
+    shards, index = 1, 0
+    for i, p in enumerate(pl):
+        if p == Shard(2):
+            shards, index = shards * mesh.size(i), index * mesh.size(i) + mesh.get_local_rank(i)
+    size = cache.shape[2] // shards
+    if shards * size != cache.shape[2]:
+        raise ValueError(f"a cache of {cache.shape[2]} positions over {shards} pieces")
+    rows = new.redistribute(mesh, [Replicate() if p == Shard(2) else p for p in pl])
+    if index * size <= pos < (index + 1) * size:
+        cache.to_local()[:, :, pos - index * size] = rows.to_local()
     return cache
+
+
+def _decode_attention(q, k_cache, v_cache, length: int, window):
+    """``decode_ref`` of one token against the caches; on DTensors each
+    rank attends with its own heads over the whole sequence (a cache whose
+    sequence is split over the mesh is gathered first)."""
+    if not is_dtensor(q):
+        return decode_ref(q, k_cache, v_cache, length, window=window)
+    from repro_torch.models.attention import on_local_heads
+
+    return on_local_heads(lambda ql, kl, vl: decode_ref(ql, kl, vl, length, window=window),
+                          q, k_cache, v_cache)
 
 
 # ---------------------------- serving ---------------------------------- #
 def prefill(params, tokens, cfg: TransformerConfig,
-            attn_backend: Optional[str] = None):
+            attn_backend: Optional[str] = None, acts=None):
     """Run the prompt, return (kv_cache, last-token logits).
 
     kv cache: dict of k/v stacked [L, B, Hkv, S, D].  ``attn_backend`` is
     :func:`~repro_torch.models.attention.attention`'s ``backend``."""
-    x = params["embed"][tokens.long()].to(cfg.cdtype)
-    x, ks, vs = _layers(params, x, cfg, attn_backend)
-    logits = (x[:, -1] @ _unembed(params, cfg)).float()
+    x, ks, vs = _layers(params, embed(params, tokens, cfg), cfg, attn_backend, acts=acts)
+    logits = constrain((x[:, -1] @ _unembed(params, cfg)).float(), acts, "logits")
     return {"k": torch.stack(ks), "v": torch.stack(vs)}, logits
 
 
-def decode_step(params, token, kv, pos: int, cfg: TransformerConfig):
+def decode_step(params, token, kv, pos: int, cfg: TransformerConfig, acts=None):
     """One token for the whole batch against a full KV cache.
 
     token: int [B]; kv: {"k","v": [L, B, Hkv, S, D]}, updated in place;
     pos: current length.  Returns (logits [B, V], kv)."""
-    x = _decode_layers(params, token, kv, pos, cfg)
-    return (x[:, 0] @ _unembed(params, cfg)).float(), kv
+    x = _decode_layers(params, token, kv, pos, cfg, acts=acts)
+    return constrain((x[:, 0] @ _unembed(params, cfg)).float(), acts, "logits"), kv
 
 
 def _decode_layers(params, token, kv, pos: int, cfg: TransformerConfig,
-                   ffn=_dense_ffn):
+                   ffn=_dense_ffn, acts=None):
     """Every layer for one token a row: the final-normed hidden states
     [B, 1, d]; ``kv`` is written in place at ``pos``."""
     b = token.shape[0]
-    x = params["embed"][token.long()].to(cfg.cdtype)[:, None, :]
+    x = constrain(embed(params, token, cfg)[:, None, :], acts, "res")
     smax = kv["k"].shape[3]
     cos, sin = L.rope_freqs(cfg.head_dim, smax, cfg.rope_theta, x.device)
     positions = torch.full((1,), pos, dtype=torch.long, device=x.device)
@@ -289,6 +384,7 @@ def _decode_layers(params, token, kv, pos: int, cfg: TransformerConfig,
         q, k, v = _qkv(lp, x, cfg, positions, cos, sin)
         kc = cache_update_add(kv["k"][i], k[:, :, 0], pos)
         vc = cache_update_add(kv["v"][i], v[:, :, 0], pos)
-        o = decode_ref(q[:, :, 0], kc, vc, pos + 1, window=cfg.local_window)
-        x = _mix(lp, x, o.reshape(b, cfg.n_heads, 1, cfg.head_dim), cfg, ffn)
+        o = _decode_attention(q[:, :, 0], kc, vc, pos + 1, cfg.local_window)
+        x = constrain(_mix(lp, x, o.reshape(b, cfg.n_heads, 1, cfg.head_dim), cfg, ffn),
+                      acts, "res")
     return L.rmsnorm(x, params["ln_f"])

@@ -121,6 +121,18 @@ def adamw(
     return Optimizer(init=init, update=update)
 
 
+def _like(x, ref):
+    """``x`` at ``ref``'s layout when both are DTensors (a factored moment
+    reduced over a split dimension comes back a partial sum, and the update
+    lands at the param's layout); ``x`` otherwise."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor) and isinstance(ref, DTensor) \
+            and tuple(x.placements) != tuple(ref.placements):
+        return x.redistribute(ref.device_mesh, ref.placements)
+    return x
+
+
 class AdafactorState(NamedTuple):
     step: torch.Tensor
     row: Any
@@ -161,11 +173,11 @@ def adafactor(
         def upd(g, r, c, f, p):
             g32 = g.to(torch.float32)
             if p.dim() >= 2:
-                r2 = beta * r + (1 - beta) * torch.mean(g32 * g32, dim=-1)
-                c2 = beta * c + (1 - beta) * torch.mean(g32 * g32, dim=-2)
+                r2 = _like(beta * r + (1 - beta) * torch.mean(g32 * g32, dim=-1), r)
+                c2 = _like(beta * c + (1 - beta) * torch.mean(g32 * g32, dim=-2), c)
                 rmean = torch.mean(r2, dim=-1, keepdim=True)
                 v = (r2[..., None] * c2[..., None, :]) / torch.clamp(rmean[..., None], min=eps)
-                delta = g32 / torch.clamp(torch.sqrt(v), min=eps)
+                delta = _like(g32 / torch.clamp(torch.sqrt(v), min=eps), p)
                 return ((p.to(torch.float32) - lr_t * delta).to(p.dtype), r2, c2, f)
             f2 = beta * f + (1 - beta) * g32 * g32
             delta = g32 / torch.clamp(torch.sqrt(f2), min=eps)

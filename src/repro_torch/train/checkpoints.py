@@ -10,8 +10,12 @@ killed writer never corrupts the latest checkpoint.  The port reads the
 reference's checkpoints and the reference the port's.
 
 Restore places each leaf on the template leaf's device (or on
-``torch_device`` when given).  The reference's elastic resharding
-(``shardings=``) waits for the mesh modules and raises here.
+``torch_device`` when given).  With ``shardings=`` (a tree like the
+template whose leaves are ``(mesh, Spec)`` pairs, ``(mesh, placements)``
+pairs, DTensors to copy the layout of, or ``None``) each leaf lands as a
+DTensor at that layout on the mesh, whatever layout wrote it: the files
+hold whole arrays, so a checkpoint written at one layout restores at any
+other (the reference's elastic resharding).
 """
 
 from __future__ import annotations
@@ -116,11 +120,9 @@ class CheckpointManager:
                 torch_device=None) -> Any:
         """template: tree with the same structure as the saved state.
         Returns (state, extra, step); each leaf lands on ``torch_device``
-        when given, else on its template leaf's device."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "reshard-on-restore (shardings=) needs the mesh modules, which "
-                "the port does not have yet")
+        when given, else on its template leaf's device, and where
+        ``shardings`` names a layout for it, as a DTensor at that layout
+        (see the module note)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError("no checkpoints found")
@@ -132,10 +134,58 @@ class CheckpointManager:
             f"leaf count mismatch: template {len(tmpl)} vs "
             f"checkpoint {len(manifest['leaves'])}"
         )
+        layouts = (_layouts(template, shardings) if shardings is not None
+                    else [None] * len(tmpl))
         out = []
-        for (_, leaf), rec in zip(tmpl, manifest["leaves"]):
+        for (_, leaf), rec, layout in zip(tmpl, manifest["leaves"], layouts):
             dev = torch_device
             if dev is None:
                 dev = leaf.device if isinstance(leaf, torch.Tensor) else "cpu"
-            out.append(leaf_from_numpy(np.load(d / rec["file"]), rec["dtype"], dev))
+            t = leaf_from_numpy(np.load(d / rec["file"]), rec["dtype"], dev)
+            out.append(t if layout is None else _distribute(t, layout))
         return unflatten(template, out), manifest["extra"], step
+
+
+def _layouts(template, shardings) -> list:
+    """One layout (or ``None``) a leaf of ``template``, in its leaf order:
+    ``shardings`` follows the template's structure down to the leaves (a
+    ``None`` subtree: no layout under it)."""
+    from repro_torch.tree import _children, _is_container
+
+    if template is None:
+        return []
+    if not _is_container(template):
+        return [shardings]
+    out = []
+    for key, child in _children(template):
+        if shardings is None:
+            sub = None
+        elif isinstance(template, dict):
+            sub = shardings[key]
+        elif hasattr(template, "_fields"):
+            sub = getattr(shardings, key[1:])
+        else:
+            sub = shardings[int(key)]
+        out += _layouts(child, sub)
+    return out
+
+
+def _distribute(t: torch.Tensor, layout):
+    """``t`` (the whole leaf) as a DTensor at ``layout``: ``(mesh, Spec)``,
+    ``(mesh, placements)`` or a DTensor whose mesh and placements it
+    takes.  Each rank keeps its own piece (``distribute_tensor``)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.distributed.sharding_rules import Spec, placements
+
+    if isinstance(layout, DTensor):
+        mesh, pl = layout.device_mesh, list(layout.placements)
+    else:
+        mesh, pl = layout
+        if isinstance(pl, Spec):
+            pl = placements(pl, mesh)
+    for i, p in enumerate(pl):
+        if p.is_shard() and t.shape[p.dim] % mesh.size(i):
+            raise ValueError(f"a leaf of shape {tuple(t.shape)} does not split at "
+                             f"{pl} over {tuple(mesh.shape)}")
+    return distribute_tensor(t.to(mesh.device_type), mesh, pl)

@@ -13,9 +13,10 @@ CPU-container simulation of the pod-scale failure model:
   pod scale the action is re-slicing the collective group (here: logged +
   counted so tests can assert the policy fires).  Hardware re-slicing is a
   runtime concern; the *policy layer* is what's portable.
-* **Elastic resize** — restoring under a different mesh is not ported: the
-  port's ``CheckpointManager.restore`` raises on ``shardings=`` (it waits
-  for the mesh modules).
+* **Elastic resize** — checkpoints hold whole arrays, so a run restores
+  under another mesh: ``CheckpointManager.restore(shardings=)`` (and
+  ``Trainer.resume(shardings=)``) lands each leaf as a DTensor at the new
+  layout.
 """
 
 from __future__ import annotations

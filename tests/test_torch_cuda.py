@@ -985,12 +985,19 @@ def test_moe_smoke_prefill_on_card_matches_cpu(cuda, monkeypatch, mod):
     """The MoE SMOKE prefill on the card: one K3 launch a layer, bitwise
     across two calls.  On the CPU, the same prefill routing on its own may
     take other experts only at near ties (``moe.route_flips``), and one
-    that takes the card's experts is within the repo's bf16 tolerance of
-    the card's logits and cache everywhere."""
+    that takes the card's experts, with K3's plain version (float32 scores,
+    p rounded to bf16 before the PV product, as the kernel rounds it) in
+    the attention's place, is within the repo's bf16 tolerance of the
+    card's logits and cache everywhere.  The CPU's own attention at S =
+    300 is ``mha_ref``, whose scores and softmax round to bf16: it parts
+    from K3 at layer 0, and through the residual it can move layer 1's
+    cache past the tolerance (``test_moe_smoke_prefill_oracle_drift``)."""
     import importlib
 
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_torch
     from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
 
     cfg = importlib.import_module(f"repro_torch.configs.{mod}").SMOKE
     params = M.init(torch.Generator(device=cuda).manual_seed(0), cfg)
@@ -1022,11 +1029,86 @@ def test_moe_smoke_prefill_on_card_matches_cpu(cuda, monkeypatch, mod):
                           *(torch.stack([r[i] for r in card]) for i in (0, 1)), 2)
     assert all(ratio <= 1 for *_, ratio in flips["first_flips"]), flips["first_flips"]
     follow.extend(experts for _, experts in card)
-    kv_h, logits_h = M.prefill(host, toks.cpu(), cfg)
+    with monkeypatch.context() as m:
+        m.setattr(T, "attention", lambda q, k, v, **_: flash_torch(
+            q, k, v, causal=True, p_dtype=v.dtype))
+        kv_h, logits_h = M.prefill(host, toks.cpu(), cfg)
     assert not follow
     torch.testing.assert_close(logits.cpu(), logits_h, atol=0.06, rtol=0.05)
     for k in kv:
         torch.testing.assert_close(kv[k].cpu(), kv_h[k], atol=0.06, rtol=0.05)
+
+
+@pytest.mark.cuda
+def test_moe_smoke_prefill_oracle_drift(cuda, monkeypatch):
+    """Where the qwen2-moe SMOKE prefill on the card parts from the CPU's,
+    over ``DRAWS`` token draws (both runs take the card's experts): the
+    largest |card - cpu| / (0.06 + 0.05 |cpu|) of each layer's k and v and
+    of the logits, with the CPU's attention as ``mha_ref`` (its own route
+    at S = 300: scores and softmax in bf16) and as K3's plain version
+    (float32 scores, p rounded to bf16), and layer 0's attention output
+    against both on the same q, k, v.  K3's rounding must keep every draw
+    within the tolerance; the printed line records both oracles."""
+    import json
+
+    from repro_torch.configs.qwen2_moe_a2p7b import SMOKE as cfg
+    from repro_torch.kernels.flash_attention.ref import flash_torch, mha_ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    draws = 100
+    params = M.init(torch.Generator(device=cuda).manual_seed(0), cfg)
+    host = {k: ([{n: t.cpu() for n, t in lp.items()} for lp in v] if k == "layers"
+                else v.cpu()) for k, v in params.items()}
+    route = M._route
+
+    def ratio(a, b):
+        return float(((a.float().cpu() - b.float()).abs() / (0.06 + 0.05 * b.float().abs()))
+                     .max())
+
+    def prefill(p, toks, follow=None, rec=None):
+        def routed(xt, router, c):
+            if follow:
+                return route(xt, router, c, follow.pop(0).to(xt.device).view(
+                    *xt.shape[:2], c.top_k))
+            out = route(xt, router, c)
+            rec.append(out[0].reshape(-1, c.top_k).cpu())
+            return out
+
+        with monkeypatch.context() as m:
+            m.setattr(M, "_route", routed)
+            return M.prefill(p, toks, cfg)
+
+    plain = lambda q, k, v, **_: flash_torch(q, k, v, causal=True, p_dtype=v.dtype)  # noqa: E731
+    worst = {"mha_ref": {}, "k3_plain": {}}
+    misses = {"mha_ref": 0, "k3_plain": 0}
+    attn0 = {"mha_ref": 0.0, "k3_plain": 0.0}
+    for _ in range(draws):
+        toks = torch.randint(0, cfg.vocab, (2, 300), device=cuda)
+        rec = []
+        kv, logits = prefill(params, toks, rec=rec)
+        for name in worst:
+            with monkeypatch.context() as m:
+                if name == "k3_plain":
+                    m.setattr(T, "attention", plain)
+                kv_h, logits_h = prefill(host, toks.cpu(), follow=list(rec))
+            r = {f"{k}{layer}": ratio(kv[k][layer], kv_h[k][layer])
+                 for k in kv for layer in range(cfg.n_layers)}
+            r["logits"] = ratio(logits, logits_h)
+            misses[name] += max(r.values()) > 1
+            worst[name] = {k: max(v, worst[name].get(k, 0.0)) for k, v in r.items()}
+        x0 = params["embed"][toks.long()].to(cfg.cdtype)
+        cos, sin = L.rope_freqs(cfg.head_dim, 300, cfg.rope_theta, cuda)
+        q, k, v = T._qkv(params["layers"][0], x0, cfg, None, cos, sin)
+        o = T.attention(q, k, v, causal=True).float().cpu()
+        qc, kc, vc = q.cpu(), k.cpu(), v.cpu()
+        for name, want in (("mha_ref", mha_ref(qc, kc, vc, causal=True)),
+                           ("k3_plain", plain(qc, kc, vc))):
+            attn0[name] = max(attn0[name], float((o - want.float()).abs().max()))
+    print(json.dumps({"draws": draws, "misses": misses, "worst": worst,
+                      "layer0_attention_max_abs": attn0}))
+    assert misses["k3_plain"] == 0, worst["k3_plain"]
 
 
 # ------------------------- training on the card ------------------------- #

@@ -65,13 +65,19 @@ def test_no_source_imports_jax_or_reference():
                                     "repro_torch.tree", "repro_torch.launch.steps",
                                     "repro_torch.launch.mesh",
                                     "repro_torch.distributed.sharding_rules",
-                                    "repro_torch.configs.paper_gwq"])
+                                    "repro_torch.configs.paper_gwq",
+                                    "repro_torch.distributed.actshard",
+                                    "repro_torch.launch.dryrun",
+                                    "repro_torch.launch.analytic",
+                                    "repro_torch.launch.roofline",
+                                    "repro_torch.launch.report"])
 def test_serving_tier_imports_stand_alone(module):
     """The serving tier (service, WAL, checkpoints, replicas, the cluster,
     health), the audit, EXPLAIN and ANALYZE modules, the sharded runtime,
     the GNN family, the MoE model, the configs and the training modules
     (optimizers, data streams, the trainer, the driver), the step builders,
-    the mesh and the sharding rules load neither JAX nor the reference
+    the mesh, the sharding rules and activation layouts, and the dry-run
+    with its roofline and reports load neither JAX nor the reference
     package on their own (nor Triton)."""
     probe = (f"import sys, {module}\n"
              "print(sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -353,13 +353,23 @@ def test_group_count_when_tokens_do_not_divide_512(t):
 
 
 def test_a_mesh_raises_not_implemented():
+    """The MoE functions take no ``mesh=``: a mesh reaches them through
+    ``acts["moe_shard"]``, as in the reference, and on plain tensors (a
+    mesh of one device) that branch is the dispatch one group at a time:
+    float32, within 1e-6 of all groups at once (``tests/
+    test_torch_lm_steps.py`` holds it over meshes)."""
     _, cfg = _cfgs("grok-1", "float32")
     params = M.init(torch.Generator().manual_seed(0), cfg)
-    x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="8e"):
+    x = torch.randn((2, 8, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    with pytest.raises(TypeError):
         M.moe_ffn(params["layers"][0], x, cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="8e"):
+    with pytest.raises(TypeError):
         M.prefill(params, torch.zeros((1, 4), dtype=torch.long), cfg, mesh=object())
+    got, aux = M.moe_ffn(params["layers"][0], x, cfg,
+                         acts={"moe_shard": (None, ("data",), "model")})
+    want, want_aux = M.moe_ffn(params["layers"][0], x, cfg)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(aux, want_aux, rtol=1e-6, atol=0)
 
 
 # ------------------------------ the model ------------------------------- #

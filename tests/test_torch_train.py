@@ -12,9 +12,20 @@ the CPU.
   the port resumes from the reference's checkpoint.
 * qwen3-0.6b SMOKE in float32 with ``microbatch=2``, 4 steps, the
   reference's params carried across: the losses within rtol 1e-5.
+* Reshard-on-restore: an LM train state (params and AdamW state, the
+  layers stacked) written at world 1 restores on two gloo ranks at the
+  step builder's FSDP layout (``restore(shardings=)``), each rank's pieces
+  bitwise the whole's; written back from there (gathered), it restores at
+  world 1 bitwise the original.  The ranks are spawned runs of this file
+  (``python tests/test_torch_train.py <rank> <world> <store> <ckpt_dir>``).
 """
 
 import dataclasses
+import datetime
+import os
+import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -69,8 +80,8 @@ def test_checkpoint_atomicity_and_gc(tmp_path):
     assert cm.steps() == [3, 4]  # old ones garbage-collected
     (tmp_path / "step_9.tmp").mkdir()  # a stale tmp dir is never picked up
     assert cm.latest_step() == 4
-    with pytest.raises(NotImplementedError):
-        cm.restore(state, shardings={"x": None})
+    restored, _, step = cm.restore(state, shardings={"x": None})  # no layout: as saved
+    assert step == 4 and torch.equal(restored["x"], state["x"])
 
 
 def _flat_state(rng):
@@ -267,3 +278,92 @@ def test_build_trainer_refuses_gnn_and_a_missing_card():
 def test_main_runs_on_cpu(capsys):
     assert launch.main(["--arch", "fm", "--steps", "2", "--batch", "16", "--device", "cpu"]) == 0
     assert '"steps": 2' in capsys.readouterr().out
+
+
+# ------------------------- reshard-on-restore -------------------------- #
+def _lm_state():
+    """qwen3-0.6b SMOKE's float32 params (layers stacked) and AdamW state,
+    from the port's init on a CPU generator seeded with 0, one step in."""
+    from repro_torch.launch import steps
+
+    params = steps.stack_layers(T.init_master(torch.Generator().manual_seed(0), SMOKE))
+    opt = steps._lm_optimizer(SMOKE)
+    state = opt.init(params)
+    params, state, _ = opt.update(params, state, params)  # the params as a gradient
+    return {"params": params, "opt": state}
+
+
+def _layouts(mesh):
+    from repro_torch.distributed.sharding_rules import lm_param_specs, opt_state_specs
+    from repro_torch.launch.mesh import dp_axes_of
+
+    state = _lm_state()
+    pspec = lm_param_specs(SMOKE, dp_axes_of(mesh))
+    specs = {"params": pspec, "opt": opt_state_specs(pspec, state["opt"])}
+    from repro_torch.launch.steps import _map_specs2
+
+    return state, _map_specs2(lambda t, sp: (mesh, sp), state, specs)
+
+
+def _reshard_worker(rank, world, store, ckpt_dir):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import _piece
+    from repro_torch.tree import flatten_with_paths, tree_map
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=120))
+    mesh = make_debug_mesh(world, 1, "cpu")
+    whole, layouts = _layouts(mesh)
+    cm = CheckpointManager(pathlib.Path(ckpt_dir) / "world1")
+    got, _, step = cm.restore(whole, shardings=layouts)
+    assert step == 1
+    for (key, t), (_, w), (_, lay) in zip(flatten_with_paths(got), flatten_with_paths(whole),
+                                          _flat_layouts(whole, layouts)):
+        want = _piece(w, lay[1], mesh, torch.device("cpu"))
+        local = t.to_local()
+        assert local.dtype == want.dtype and torch.equal(local, want), key
+    full = tree_map(lambda t: t.full_tensor(), got)
+    if rank == 0:
+        CheckpointManager(pathlib.Path(ckpt_dir) / "world2").save(2, full, {"from": world})
+    dist.barrier()
+
+
+def _flat_layouts(state, layouts):
+    """(path, layout) a leaf of ``state``, in its leaf order."""
+    from repro_torch.train.checkpoints import _layouts as leaf_layouts
+    from repro_torch.tree import flatten_with_paths
+
+    return [(k, lay) for (k, _), lay in zip(flatten_with_paths(state),
+                                            leaf_layouts(state, layouts))]
+
+
+def test_reshard_on_restore_between_world1_and_world2(tmp_path):
+    from repro_torch.tree import flatten_with_paths
+
+    state = _lm_state()
+    CheckpointManager(tmp_path / "world1").save(1, state, {"from": 1})
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(root / "src"), "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen([sys.executable, __file__, str(r), "2", str(tmp_path / "store"),
+                               str(tmp_path)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env, cwd=root) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240))
+    finally:
+        for p in procs:
+            p.kill()
+    for p, (o, e) in zip(procs, outs):
+        assert p.returncode == 0, o[-2000:] + e[-4000:]
+    back, extra, step = CheckpointManager(tmp_path / "world2").restore(state)
+    assert step == 2 and extra == {"from": 2}
+    for (k, a), (_, b) in zip(flatten_with_paths(back), flatten_with_paths(state)):
+        assert a.dtype == b.dtype and torch.equal(a, b), k
+
+
+if __name__ == "__main__":
+    _reshard_worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])
