@@ -182,9 +182,13 @@ Phases, one JSON object per line:
     ogbn-products' training-split sizes (140, 196,615 seeded nodes) or the
     sampled subgraph's 1,024 seeds, MeshGraphNet's node targets.  The
     source-sorted layout built (host s, bytes); step 1 on the kernel route
-    with K1's forward and backward launches counted (reset just before,
-    read just after; GCN and SAGE 1 a layer forward and 1 backward for the
-    second layer, GAT 3 and 4 a layer, MGN 1 and 2 a step) against the
+    with K1's forward, recomputed-forward and backward launches counted
+    (reset just before, read just after; GCN and SAGE 1 a layer forward
+    and 1 backward for the second layer, GAT 3 and 4 a layer, MGN 1, 1 and
+    2 a step: its backward recomputes each processor step's forward under
+    chunked remat; the recomputed launches are told apart by a wrapper of
+    ``models/gnn.py``'s ``checkpoint``, which also times each chunk's body
+    on the host) against the
     plain route (K1's sums forward, so that both routes differentiate at the
     same point; backward, the gradient of K1's plain version under PyTorch's
     autograd, chunked as 15a's, and ``index_select``'s own backward for
@@ -192,13 +196,21 @@ Phases, one JSON object per line:
     element within 1e-4 (|plain| + rms(plain)); the free plain route (K1's
     plain version forward too) read beside, its loss within 1e-5; two
     step 1s from one state bitwise
-    equal (loss, gradients, params, moments); gcn-cora's step over a
-    one-device ``DeviceMesh`` (NCCL) bitwise the one-card step; 5 steps
-    timed (median of steps 2-5, nodes and edges a second, peak memory);
-    one step profiled: K1 forward and backward, cuBLAS, elementwise and
-    the rest of the device time, the idle share, and no kernel that adds
-    with atomics (``index_add_``, the backward of ``x[idx]``,
-    ``scatter_add_``).
+    equal (loss, gradients, params, moments); each case's step but
+    graphsage-reddit's at ogb_products over a one-device ``DeviceMesh``
+    (NCCL) bitwise the one-card step, and so is its step on an edge plan
+    over that world of one, which takes the node-sharded path (NCCL's
+    all-gathers and reduce-scatters, counted, MeshGraphNet's reissued by
+    its remat); 5 steps timed (median of steps 2-5, nodes and edges a
+    second, peak memory); one step profiled: K1 forward, recomputed
+    forward and backward, cuBLAS, elementwise and the rest of the device
+    time, the idle share, and no kernel that adds with atomics
+    (``index_add_``, the backward of ``x[idx]``, ``scatter_add_``).
+    MeshGraphNet's remat on the host: steps with and without it
+    (``checkpoint`` replaced by a plain call), alternating, each split
+    into forward, backward and optimizer on the host's clock, the
+    recomputed chunks' host time, the garbage collector's time, and each
+    one's peak memory.
     ``kernel:segment_sum_bwd`` — K1 as its own backward at ogbn-products'
     layer 2 (C = 128, the source-sorted layout's ``by_src_dst``): bitwise
     across two launches, within ``GNN_TOL`` of its plain version; timed
@@ -2637,8 +2649,13 @@ def serve_gnn(args, dev, khop) -> tuple:
         bwd_launches += train_bwd
         k1_bwd = bwd_row or k1_bwd
         torch.cuda.empty_cache()
+    mgn = [{"shape": t["shape"], "k1_launches_per_step": t["k1_launches_per_step"],
+            "peak_bytes": t["peak_bytes"], "step_ms": t["step_ms"],
+            "k1_recompute_ms": t["profile"]["k1_recompute_ms"],
+            "remat_host": t["remat_host"]}
+           for t in trains if t["arch"] == "meshgraphnet"]
     return ({"cases": cases, "khop_aggregate": khop[0]},
-            {"cases": trains, "seconds": time.perf_counter() - t_phase},
+            {"meshgraphnet": mgn, "cases": trains, "seconds": time.perf_counter() - t_phase},
             launches + khop[1], bwd_launches, k1_bwd)
 
 
@@ -2649,8 +2666,15 @@ def serve_gnn(args, dev, khop) -> tuple:
 GNN_TRAIN_STEPS = 5  # steps timed a case (the median of steps 2..5)
 # K1 launches a step (two layers; MeshGraphNet a processor step): forward,
 # and backward for each layer whose input needs a gradient (GCN's and
-# GraphSAGE's first layer reads the features, which need none)
+# GraphSAGE's first layer reads the features, which need none): the
+# transposes of the gathers.  MeshGraphNet's backward also recomputes each
+# processor step's forward under its chunked remat: one forward sum more a
+# step, counted apart
 GNN_K1_BWD_PER_LAYER = {"gcn": 1, "sage": 1, "gat": 4, "meshgraphnet": 2}
+GNN_K1_RECOMPUTE_PER_LAYER = {"gcn": 0, "sage": 0, "gat": 0, "meshgraphnet": 1}
+# MeshGraphNet's steps with and without remat, alternating, each timed on
+# the host by phase
+GNN_REMAT_ROUNDS = 6
 # step 1 on the kernel route against the plain route (K1's plain version
 # under PyTorch's autograd): loss, gnorm, and each gradient element within
 # GNN_TRAIN_TOL * (|plain| + rms(plain)) (float32 sums in another order,
@@ -2670,8 +2694,9 @@ GNN_KERNEL_KINDS = (("cublas", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
 # cases with a train mask of this many nodes (Cora's and ogbn-products'
 # public training splits); the sampled subgraph's loss is over its seeds
 GNN_TRAIN_NODES = {"full_graph_sm": 140, "ogb_products": 196_615}
-# the case whose step also runs over a one-device DeviceMesh
-GNN_WORLD1_ARCH = "gcn-cora"
+# every case's step also runs over a one-device DeviceMesh, but this one's,
+# whose host plan (built again for the mesh step) dominates its time
+GNN_WORLD1_SKIP = (("graphsage-reddit", "ogb_products"),)
 
 
 def gnn_train_batch(cfg, shape, dims, n, x, src_t, dst_t, extra, gen, dev) -> dict:
@@ -2737,6 +2762,58 @@ def plain_k1_vjp(tp, values, monoids, g):
 _PLAIN_FN = {}  # the autograd Function of the plain routes, made at first use
 
 
+class RematProbe:
+    """Stands in for ``models/gnn.py``'s ``checkpoint``: each chunk's body
+    runs under the real one, and each call of it is recorded: whether it
+    is the backward's recompute (a body's second call), the index of its
+    first K1 launch counted from :meth:`reset`, its K1 launches and its
+    host ms."""
+
+    def __init__(self, real):
+        self.real, self.calls, self.start = real, [], 0
+
+    def reset(self):
+        from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
+
+        self.calls, self.start = [], segment_sum_tiled.launches
+
+    def __call__(self, fn, *args, **kwargs):
+        from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
+
+        seen = []
+
+        def body(*a):
+            t, before = time.perf_counter(), segment_sum_tiled.launches
+            try:
+                return fn(*a)
+            finally:  # a recompute may stop early, by an exception
+                self.calls.append({"recompute": bool(seen), "first": before - self.start,
+                                   "launches": segment_sum_tiled.launches - before,
+                                   "ms": (time.perf_counter() - t) * 1e3})
+                seen.append(True)
+
+        return self.real(body, *args, **kwargs)
+
+    def recomputed(self) -> list:
+        """The recomputes' K1 launches, by index from :meth:`reset`."""
+        return [i for c in self.calls if c["recompute"]
+                for i in range(c["first"], c["first"] + c["launches"])]
+
+
+def node_rows_collectives(kind, n_layers) -> tuple:
+    """(all-gathers, reduce-scatters) of one node-sharded step: forward, a
+    gather of each layer's input rows but the features (every layer's for
+    GAT and MeshGraphNet) and a reduce-scatter of each layer's sums;
+    backward, the other collective of each pair whose input needs a
+    gradient (not GCN's and GraphSAGE's first sums, of the features);
+    MeshGraphNet's recomputed forward reissues its pair a step."""
+    if kind in ("gcn", "sage"):
+        return 2 * (n_layers - 1), 2 * n_layers - 1
+    if kind == "gat":
+        return 2 * n_layers, 2 * n_layers
+    return 3 * n_layers, 3 * n_layers
+
+
 def _plain_route(pinned: bool):
     """K1's sums on a plain route of a training step, where autograd
     records: forward K1's result (``pinned``: both routes then differentiate
@@ -2799,18 +2876,23 @@ def gnn_train_case(arch, shape, cfg, plan, params, batch, n, e, args, dev) -> tu
     layout_s = time.perf_counter() - t
 
     live = [p.detach().requires_grad_() for p in leaves(params)]
-    before = segment_sum_tiled.launches
-    loss = steps.gnn_loss(unflatten(params, live), batch, cfg, n, plan=plan)
-    torch.cuda.synchronize(dev)
-    fwd = segment_sum_tiled.launches - before
-    grads = torch.autograd.grad(loss, live)
-    torch.cuda.synchronize(dev)
-    bwd = segment_sum_tiled.launches - before - fwd
+    probe = RematProbe(gnn.checkpoint)
+    with mock.patch.object(gnn, "checkpoint", probe):
+        probe.reset()
+        before = segment_sum_tiled.launches
+        loss = steps.gnn_loss(unflatten(params, live), batch, cfg, n, plan=plan)
+        torch.cuda.synchronize(dev)
+        fwd = segment_sum_tiled.launches - before
+        grads = torch.autograd.grad(loss, live)
+        torch.cuda.synchronize(dev)
+    rec = len(probe.recomputed())
+    bwd = segment_sum_tiled.launches - before - fwd - rec
     bwd_layers = cfg.n_layers - 1 if cfg.kind in ("gcn", "sage") else cfg.n_layers
     want = (GNN_K1_PER_LAYER[cfg.kind] * cfg.n_layers,
+            GNN_K1_RECOMPUTE_PER_LAYER[cfg.kind] * cfg.n_layers,
             GNN_K1_BWD_PER_LAYER[cfg.kind] * bwd_layers)
-    check((fwd, bwd) == want, f"{arch} at {shape}: K1 launches a step (forward, "
-          f"backward) {(fwd, bwd)}, not {want}")
+    check((fwd, rec, bwd) == want, f"{arch} at {shape}: K1 launches a step (forward, "
+          f"recomputed forward, backward) {(fwd, rec, bwd)}, not {want}")
     loss = loss.detach()
     gnorm = float(_global_norm(list(grads)))
     check(bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads),
@@ -2866,8 +2948,8 @@ def gnn_train_case(arch, shape, cfg, plan, params, batch, n, e, args, dev) -> tu
     check(torch.equal(first[2]["loss"], loss), f"{arch} at {shape}: the step's loss is "
           "not its gradients' loss")
     del second
-    world1 = world1_mesh_step(cfg, dims, params, opt0, batch, first, dev) \
-        if arch == GNN_WORLD1_ARCH else None
+    world1 = world1_mesh_step(cfg, dims, params, opt0, batch, first, built, plan, dev) \
+        if (arch, shape) not in GNN_WORLD1_SKIP else None
     # GNN_TRAIN_STEPS steps, each timed to its synchronize
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2882,23 +2964,32 @@ def gnn_train_case(arch, shape, cfg, plan, params, batch, n, e, args, dev) -> tu
     check(all(math.isfinite(h["loss"]) and math.isfinite(h["gnorm"]) for h in history),
           f"{arch} at {shape}: a step's loss or gnorm is not finite")
     step_ms = statistics.median(h["ms"] for h in history[1:])
-    prof = device_profile(lambda: built.fn(p, o, batch, plan=plan), dev, step_ms,
-                          match=("segment_reduce_kernel",), names=True)
+    with mock.patch.object(gnn, "checkpoint", probe):
+        prof = device_profile(lambda: (probe.reset(), built.fn(p, o, batch, plan=plan)),
+                              dev, step_ms, match=("segment_reduce_kernel",), names=True)
+    recomputed = set(probe.recomputed())
     k1 = prof["matched"]["segment_reduce_kernel"]
-    check(k1["launches"] == fwd + bwd,
-          f"{arch} at {shape}: the profiled step ran K1 {k1['launches']} times")
+    check(k1["launches"] == fwd + rec + bwd and len(recomputed) == rec,
+          f"{arch} at {shape}: the profiled step ran K1 {k1['launches']} times, "
+          f"{len(recomputed)} of them recomputing")
     atomics = [k for k in prof["names"] if any(a in k.lower() for a in GNN_ATOMIC_KERNELS)]
     check(not atomics, f"{arch} at {shape}: the step launched atomic-add kernels {atomics}")
     by_kind = {name: sum(ms for key, ms in prof["names"].items()
                          if any(s in key.lower() for s in subs))
                for name, subs in GNN_KERNEL_KINDS}
-    k1_fwd_ms, k1_bwd_ms = sum(k1["by_launch_ms"][:fwd]), sum(k1["by_launch_ms"][fwd:])
+    k1_fwd_ms = sum(k1["by_launch_ms"][:fwd])
+    k1_rec_ms = sum(k1["by_launch_ms"][i] for i in sorted(recomputed))
+    k1_bwd_by_launch = [ms for i, ms in enumerate(k1["by_launch_ms"])
+                        if i >= fwd and i not in recomputed]
+    k1_bwd_ms = sum(k1_bwd_by_launch)
     device_ms = prof["device_ms"]
+    remat = remat_host_cost(cfg, params, opt0, batch, plan, n, dev) \
+        if GNN_K1_RECOMPUTE_PER_LAYER[cfg.kind] else None
     return {
         "arch": arch, "shape": shape, "n": n, "edges": e, "steps": GNN_TRAIN_STEPS,
         "source_layout_s": layout_s, "source_layout_bytes": plan.source_nbytes(),
         "plan_bytes": plan.plan_nbytes(),
-        "k1_launches_per_step": {"forward": fwd, "backward": bwd},
+        "k1_launches_per_step": {"forward": fwd, "recompute": rec, "backward": bwd},
         "step1": {"loss": float(loss), "plain_loss": float(p_loss), "loss_rel": loss_rel,
                   "gnorm": gnorm, "plain_gnorm": p_gnorm, "gnorm_rel": gnorm_rel,
                   "grad_share_of_tol": worst, "grad_share_of_tol_by_leaf": shares,
@@ -2908,28 +2999,45 @@ def gnn_train_case(arch, shape, cfg, plan, params, batch, n, e, args, dev) -> tu
         "step_ms": step_ms, "step_ms_all": [h["ms"] for h in history],
         "losses": [h["loss"] for h in history], "gnorms": [h["gnorm"] for h in history],
         "nodes_per_s": n / step_ms * 1e3, "edges_per_s": e / step_ms * 1e3,
-        "peak_bytes": peak,
+        "peak_bytes": peak, "remat_host": remat,
         "profile": {"device_ms": device_ms, "device_idle_share": prof["device_idle_share"],
-                    "k1_forward_ms": k1_fwd_ms, "k1_backward_ms": k1_bwd_ms,
+                    "k1_forward_ms": k1_fwd_ms, "k1_recompute_ms": k1_rec_ms,
+                    "k1_backward_ms": k1_bwd_ms,
                     **{f"{name}_ms": ms for name, ms in by_kind.items()},
-                    "other_ms": (device_ms - k1_fwd_ms - k1_bwd_ms - sum(by_kind.values())
+                    "other_ms": (device_ms - k1_fwd_ms - k1_rec_ms - k1_bwd_ms
+                                 - sum(by_kind.values())
                                  if isinstance(device_ms, float) else "not measured"),
-                    "k1_backward_by_launch_ms": k1["by_launch_ms"][fwd:],
+                    "k1_backward_by_launch_ms": k1_bwd_by_launch,
                     "top_device_events": prof["top_device_events"][:6]},
-    }, fwd + bwd, bwd
+    }, fwd + rec + bwd, bwd
 
 
-def world1_mesh_step(cfg, dims, params, opt0, batch, one_card, dev) -> str:
+def world1_mesh_step(cfg, dims, params, opt0, batch, one_card, built, plan, dev) -> dict:
     """The step over a one-device ``DeviceMesh`` (NCCL, a world of one
     started here and ended after): the batch cut by its specs, its own
-    plan built; every result bitwise ``one_card``'s (the ``mesh=None``
-    step from the same state)."""
+    plan built; then the one-card step ``built`` on ``plan`` with that
+    world's group, which takes the node-sharded path (NCCL's all-gathers
+    and reduce-scatters, counted against :func:`node_rows_collectives`).
+    Every result of both bitwise ``one_card``'s (the ``mesh=None`` step
+    from the same state)."""
+    import dataclasses
+    from unittest import mock
+
     import torch
     import torch.distributed as dist
 
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import gnn
     from repro_torch.tree import leaves
+
+    counts = {"all_gather": 0, "reduce_scatter": 0}
+
+    def counted(name, real):
+        def call(x, rows):
+            counts[name] += 1
+            return real(x, rows)
+        return call
 
     started = not dist.is_initialized()
     try:
@@ -2938,10 +3046,92 @@ def world1_mesh_step(cfg, dims, params, opt0, batch, one_card, dev) -> str:
             params, opt0, batch)
         check(all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(one_card))),
               f"{cfg.name}: the world-1 mesh step differs from the one-card step")
+        with mock.patch.object(gnn, "_all_gather", counted("all_gather", gnn._all_gather)), \
+                mock.patch.object(gnn, "_reduce_scatter",
+                                  counted("reduce_scatter", gnn._reduce_scatter)):
+            got = built.fn(params, opt0, batch,
+                           plan=dataclasses.replace(plan, group=dist.group.WORLD))
+            torch.cuda.synchronize(dev)
+        want = node_rows_collectives(cfg.kind, cfg.n_layers)
+        check(tuple(counts.values()) == want, f"{cfg.name}: the node-sharded step issued "
+              f"{counts} all-gathers and reduce-scatters, not {want}")
+        check(all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(one_card))),
+              f"{cfg.name}: the node-sharded step over a world of one differs from the "
+              "one-card step")
     finally:
         if started and dist.is_initialized():
             dist.destroy_process_group()
-    return "bitwise the one-card step"
+    return {"mesh": "bitwise the one-card step",
+            "node_rows": "bitwise the one-card step", "collectives": counts}
+
+
+def remat_host_cost(cfg, params, opt0, batch, plan, n, dev) -> dict:
+    """MeshGraphNet's step with its remat and without (``checkpoint``
+    replaced by a plain call), ``GNN_REMAT_ROUNDS`` rounds alternating:
+    each step split on the host's clock into forward, backward and
+    optimizer (a synchronize at each end), the recomputed chunks' host ms
+    (:class:`RematProbe`), the garbage collector's ms and collections
+    (``gc.callbacks``) and the peak memory; the medians of each, and each
+    step's ms."""
+    import gc
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.models import gnn
+    from repro_torch.tree import leaves, unflatten
+
+    opt = steps.gnn_optimizer()
+    probe = RematProbe(gnn.checkpoint)
+    variants = {"remat": probe, "no_remat": lambda fn, *a, **kw: fn(*a)}
+    collected, since = {"ms": 0.0, "count": 0}, [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            since[0] = time.perf_counter()
+        else:
+            collected["ms"] += (time.perf_counter() - since[0]) * 1e3
+            collected["count"] += 1
+
+    runs = {name: [] for name in variants}
+    gc.callbacks.append(on_gc)
+    try:
+        for _ in range(GNN_REMAT_ROUNDS):
+            for name, ckpt in variants.items():
+                torch.cuda.synchronize(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                probe.reset()
+                collected.update(ms=0.0, count=0)
+                live = [p.detach().requires_grad_() for p in leaves(params)]
+                with mock.patch.object(gnn, "checkpoint", ckpt):
+                    t0 = time.perf_counter()
+                    loss = steps.gnn_loss(unflatten(params, live), batch, cfg, n, plan=plan)
+                    torch.cuda.synchronize(dev)
+                    t1 = time.perf_counter()
+                    grads = torch.autograd.grad(loss, live)
+                    torch.cuda.synchronize(dev)
+                    t2 = time.perf_counter()
+                opt.update(unflatten(params, list(grads)), opt0, params)
+                torch.cuda.synchronize(dev)
+                t3 = time.perf_counter()
+                runs[name].append({
+                    "forward_ms": (t1 - t0) * 1e3, "backward_ms": (t2 - t1) * 1e3,
+                    "update_ms": (t3 - t2) * 1e3, "step_ms": (t3 - t0) * 1e3,
+                    "recompute_host_ms": sum(c["ms"] for c in probe.calls if c["recompute"]),
+                    "gc_ms": collected["ms"], "gc_collections": collected["count"],
+                    "peak_bytes": torch.cuda.max_memory_allocated(dev)})
+                del loss, grads, live
+    finally:
+        gc.callbacks.remove(on_gc)
+    out = {name: {key: statistics.median(r[key] for r in rs) for key in rs[0]}
+           for name, rs in runs.items()}
+    out["remat_minus_no_remat_ms"] = {
+        key: out["remat"][key] - out["no_remat"][key]
+        for key in ("forward_ms", "backward_ms", "update_ms", "step_ms", "gc_ms")}
+    out["step_ms_all"] = {name: [r["step_ms"] for r in rs] for name, rs in runs.items()}
+    out["rounds"] = GNN_REMAT_ROUNDS
+    return out
 
 
 def kernel_k1_bwd(plan, n, args, dev) -> dict:

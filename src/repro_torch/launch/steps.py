@@ -456,7 +456,14 @@ def gnn_loss(params, batch, cfg: G.GNNConfig, n: int, node_spec=None,
     gat; the mean over all nodes without ``label_mask``), or the MSE
     against ``targets`` (meshgraphnet).  The label's logit is picked by a
     mask and a sum, which is exact and whose backward is elementwise (the
-    backward of ``gather`` adds with atomics on the card)."""
+    backward of ``gather`` adds with atomics on the card).
+
+    On an edge shard (a ``plan`` with a group, over which node rows shard
+    too: the forward returns the rank's rows, :func:`~repro_torch.models.
+    gnn.node_rows`) each rank reads its rows of ``labels``, ``label_mask``
+    and ``targets``, and its sums are added over the ranks (the backward of
+    that sum is the identity), so every rank holds the whole graph's loss.
+    ``node_spec`` is the reference's parameter, accepted and not read."""
     es, ed = batch["edge_src"], batch["edge_dst"]
     feats = batch["feats"]
     if cfg.kind == "gcn":
@@ -469,18 +476,23 @@ def gnn_loss(params, batch, cfg: G.GNNConfig, n: int, node_spec=None,
     else:
         out = G.mgn_forward(params, feats, batch["edge_feats"], es, ed, n, cfg,
                             node_spec=node_spec, plan=plan)
+    rows = G.node_rows(plan)
+    own = (lambda x: x) if rows is None else rows.own
+    total = (lambda x: x) if rows is None else rows.total
     if cfg.kind == "meshgraphnet":
-        return torch.mean(torch.square(out - batch["targets"]))
-    labels = batch["labels"]
+        sq = torch.sum(torch.square(out - own(batch["targets"])))
+        return total(sq) / (n * cfg.d_out)
+    labels = own(batch["labels"])
     mask = batch.get("label_mask", None)
     logits = out.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     pick = torch.arange(logits.shape[-1], device=logits.device) == labels[:, None].long()
     ll = torch.where(pick, logits, torch.zeros((), device=logits.device)).sum(dim=-1)
     nll = lse - ll
-    if mask is not None:
-        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    return torch.mean(nll)
+    if mask is None:
+        return total(torch.sum(nll)) / n
+    sums = total(torch.stack([torch.sum(nll * own(mask)), torch.sum(own(mask))]))
+    return sums[0] / torch.clamp(sums[1], min=1.0)
 
 
 def gnn_optimizer():
@@ -515,14 +527,16 @@ def build_gnn_train(cfg: G.GNNConfig, mesh, dims: Dict[str, int],
 
     Edges shard over the whole mesh (every axis, as ``gnn_specs`` puts the
     dp axes and the reference adds ``"model"``): each rank runs K1 on its
-    own edge shard.  Node states and params are replicated on every rank,
-    where the reference shards node states over the mesh (``node_spec``):
-    replicated rows enter a shard through an identity whose backward is an
-    ``all_reduce``, and a shard's partial node sums leave it through an
-    ``all_reduce`` whose backward is the identity (``models/gnn.py``), so
-    every rank ends a step with the same loss, gradients and params.  Over
-    one shard (``mesh=None`` or a mesh of one device) there is no
-    collective: the step is bitwise the one-card step."""
+    own edge shard.  Node states shard over the same axes, as the
+    reference's ``node_spec`` ``P(d, None)``: each rank holds
+    ``ceil(n / W)`` node rows, all-gathers them where its edges read them
+    and reduce-scatters its partial node sums back into them
+    (``models/gnn.py``), and the loss adds the ranks' sums.  The batch
+    (features, labels, targets) stays replicated, as the reference's, and
+    so do the params: each gradient, a partial sum on each rank, is
+    all-reduced, so every rank ends a step with the same loss, gradients
+    and params.  Over one shard (``mesh=None`` or a mesh of one device)
+    there is no collective: the step is bitwise the one-card step."""
     dev = resolve_device(torch_device)
     axes = (tuple(dp_axes_of(mesh)) + ("model",)) if mesh is not None else ()
     ndev, _, group = _mesh_group(mesh, axes)

@@ -27,15 +27,26 @@ atomics.  K1 launches in the backward, for a layer whose input needs a
 gradient: GCN and GraphSAGE one a layer (none for the first, whose input
 is the features), GAT four a layer (the gathers at the sources and at
 the destinations of the scores, of the softmax's denominator and of the
-messages), MeshGraphNet two a processor step.  An :class:`EdgePlan` with
-a ``group`` holds one shard of the edges; node rows stay replicated
-(``launch/steps.build_gnn_train``).
+messages), MeshGraphNet three a processor step (its two gathers, and the
+recomputed forward's sum: see ``remat_chunk`` below).
 
-``node_spec`` and ``remat_chunk`` are the reference's sharding constraint
-and backward checkpointing hints.  The port has no use for either (node
-states are replicated; MeshGraphNet's activations at the molecule shape
-need no recomputation): they are accepted with the reference's defaults
-and do nothing.
+An :class:`EdgePlan` with a ``group`` holds one shard of the edges, and
+node rows shard over the same group, as the reference's ``node_spec``
+shards node states over the edge spec's axes (:class:`NodeRows`): each
+rank holds ``ceil(n / W)`` rows, all-gathers them where its edges read
+them and reduce-scatters its partial node sums back into them
+(Megatron's sequence-parallel pair); node-side matmuls and MLPs run on
+the rank's rows only, and every parameter's gradient, a partial sum on
+each rank, is all-reduced.  GAT's softmax statistics (the per-head max
+and the denominator, ``[n, H]``) stay whole.  ``node_spec`` is the
+reference's parameter, accepted and not read: the plan's group says the
+same.
+
+``remat_chunk``: MeshGraphNet's processor steps, when autograd records,
+run under ``torch.utils.checkpoint`` in chunks of ``remat_chunk`` steps
+(1 when it does not divide ``n_layers``), as the reference's nested
+``jax.checkpoint``: the backward keeps only each chunk's input carries
+and recomputes the chunk's forward, all-gathers included.
 
 Params are nested dicts of tensors; MeshGraphNet's processor steps are a
 list of per-step dicts (the reference stacks them for ``lax.scan``).
@@ -49,6 +60,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device, upload
 from repro_torch.kernels.segment_reduce.ops import (
@@ -57,6 +69,7 @@ from repro_torch.kernels.segment_reduce.ops import (
     segment_reduce_multi,
 )
 from repro_torch.models import layers as L
+from repro_torch.tree import leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,9 +108,9 @@ class EdgePlan:
     The backward of message passing reads the same edges grouped by
     source: :meth:`source` builds that layout from these plans on its first
     call and keeps it (serving never calls it).  ``group`` is the process
-    group over which an edge shard's partial node sums combine (``None``:
-    the plan holds every edge of the graph); ``in_degree`` then counts the
-    whole graph's edges."""
+    group of an edge shard, over which node rows shard too
+    (:func:`node_rows`; ``None``: the plan holds every edge and every row
+    of the graph); ``in_degree`` then counts the whole graph's edges."""
 
     n: int
     by_edge: TilePlan
@@ -259,9 +272,11 @@ class _SourceSum(torch.autograd.Function):
         return _sum_all(ctx.plan.source()[1], dout.contiguous()), None
 
 
-# Megatron's conjugate pair (f, g) for an edge shard (``EdgePlan.group``):
-# replicated node rows enter the shard through f, the shard's partial node
-# sums leave it through g.  Without a group both are the identity.
+# Megatron's conjugate pair (f, g) over an edge shard's group
+# (``EdgePlan.group``): f is the identity forward and sums the gradient
+# across the shards backward (each parameter, and GAT's softmax
+# denominator, which every shard reads whole), g sums across the shards
+# forward (the denominator's partial sums, a loss's partial sums).
 class _CopyToEdges(torch.autograd.Function):
     """f: identity forward, ``all_reduce`` (sum) of the gradient backward."""
 
@@ -272,9 +287,11 @@ class _CopyToEdges(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        torch.distributed.all_reduce(g, group=ctx.group)
-        return g, None
+        out = g.contiguous().clone()
+        torch.distributed.all_reduce(out, group=ctx.group)
+        # in ``g``'s layout: a sum over the gradient (the optimizer's norm)
+        # runs in its memory order
+        return torch.empty_like(g).copy_(out), None
 
 
 class _ReduceFromEdges(torch.autograd.Function):
@@ -291,30 +308,140 @@ class _ReduceFromEdges(torch.autograd.Function):
         return g, None
 
 
-def _to_edges(x, plan: EdgePlan):
-    return x if plan.group is None else _CopyToEdges.apply(x, plan.group)
-
-
-def _from_edges(x, plan: EdgePlan):
-    return x if plan.group is None else _ReduceFromEdges.apply(x, plan.group)
-
-
-def _edge_params(tree, plan: EdgePlan):
-    """Params the edge shard alone uses (MeshGraphNet's edge encoder and
-    edge MLPs), through f: their gradients are summed across the shards."""
+def _shard_params(tree, plan: EdgePlan):
+    """Every param through f: on an edge shard each acts on the rank's
+    edges or node rows only, so its gradient is summed across the shards."""
     if plan.group is None:
         return tree
     if isinstance(tree, dict):
-        return {k: _edge_params(v, plan) for k, v in tree.items()}
+        return {k: _shard_params(v, plan) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_edge_params(v, plan) for v in tree]
-    return _to_edges(tree, plan)
+        return [_shard_params(v, plan) for v in tree]
+    return _CopyToEdges.apply(tree, plan.group)
+
+
+# Node rows over an edge shard's group: Megatron's sequence-parallel pair.
+# A rank's rows enter its edges through an all-gather (backward:
+# reduce-scatter), its partial node sums leave them through a
+# reduce-scatter (backward: all-gather).  Both collectives take equal
+# chunks: the whole rows are padded to ``world * chunk`` with zero rows,
+# which are cut off again before anything reads them.
+@dataclasses.dataclass(frozen=True)
+class NodeRows:
+    """The node rows one rank owns on an edge shard: rank ``r`` of the
+    group's ``world`` holds rows ``[r * chunk, (r + 1) * chunk)`` of
+    ``[0, n)``, ``chunk = ceil(n / world)``."""
+
+    n: int
+    group: Any
+    rank: int
+    world: int
+
+    @property
+    def chunk(self) -> int:
+        return -(-self.n // self.world)
+
+    @property
+    def lo(self) -> int:
+        return min(self.rank * self.chunk, self.n)
+
+    @property
+    def hi(self) -> int:
+        return min(self.lo + self.chunk, self.n)
+
+    def own(self, x):
+        """This rank's rows of replicated node rows ``x`` ``[n, ...]``."""
+        return x[self.lo:self.hi]
+
+    def gather(self, x):
+        """Every rank's rows ``[n, ...]`` from this rank's ``x``."""
+        return _GatherNodes.apply(x, self)
+
+    def scatter(self, x):
+        """This rank's rows of the sum over ranks of partial node sums
+        ``x`` ``[n, ...]``."""
+        return _ScatterNodes.apply(x, self)
+
+    def total(self, x):
+        """``x`` summed over the ranks (identity backward): a loss term
+        each rank computes on its own rows."""
+        return _ReduceFromEdges.apply(x, self.group)
+
+
+def node_rows(plan: Optional[EdgePlan]) -> Optional[NodeRows]:
+    """The rank's :class:`NodeRows` when ``plan`` is an edge shard of a
+    group (rank and world are the group's); ``None`` otherwise: one shard
+    holds every edge and every row."""
+    if plan is None or plan.group is None:
+        return None
+    g = plan.group
+    return NodeRows(n=plan.n, group=g, rank=torch.distributed.get_rank(g),
+                    world=torch.distributed.get_world_size(g))
+
+
+def _pad_rows(x, rows: int):
+    if x.shape[0] == rows:
+        return x.contiguous()
+    return torch.cat([x, x.new_zeros((rows - x.shape[0],) + tuple(x.shape[1:]))])
+
+
+def _all_gather(x, rows: NodeRows):
+    out = x.new_empty((rows.world * rows.chunk,) + tuple(x.shape[1:]))
+    torch.distributed.all_gather_into_tensor(out, _pad_rows(x, rows.chunk), group=rows.group)
+    return out[: rows.n]
+
+
+def _reduce_scatter(x, rows: NodeRows):
+    out = x.new_empty((rows.chunk,) + tuple(x.shape[1:]))
+    torch.distributed.reduce_scatter_tensor(out, _pad_rows(x, rows.world * rows.chunk),
+                                            group=rows.group)
+    return out[: rows.hi - rows.lo]
+
+
+class _GatherNodes(torch.autograd.Function):
+    """All-gather forward, reduce-scatter of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, rows):
+        ctx.rows = rows
+        return _all_gather(x, rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.rows), None
+
+
+class _ScatterNodes(torch.autograd.Function):
+    """Reduce-scatter forward, all-gather of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, rows):
+        ctx.rows = rows
+        return _reduce_scatter(x, rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.rows), None
+
+
+def _own(x, rows: Optional[NodeRows]):
+    return x if rows is None else rows.own(x)
+
+
+def _gathered(h, rows: Optional[NodeRows]):
+    # a node of the autograd graph either way: the gradients of the rows'
+    # readers add up there first, in the same order with and without the
+    # gather (at world 1 the node-sharded step is bitwise the one-shard one)
+    return h.view_as(h) if rows is None else rows.gather(h)
+
+
+def _scattered(s, rows: Optional[NodeRows]):
+    return s if rows is None else rows.scatter(s)
 
 
 def gather_rows(x, idx, plan: EdgePlan, by: str):
     """``x[idx]`` for node rows ``x`` ``[n, ...]`` and the edges' clamped
     sources (``by="src"``) or destinations (``by="dst"``) ``idx`` (int64)."""
-    x = _to_edges(x, plan)
     flat = _cols(x)
     out = (_GatherRows.apply(flat, idx, plan, by) if _record(flat)
            else flat.index_select(0, idx))
@@ -324,22 +451,20 @@ def gather_rows(x, idx, plan: EdgePlan, by: str):
 def source_sum(h, plan: EdgePlan):
     """``[n, C]`` node rows summed into each node over its valid incoming
     edges' sources: one K1 launch on ``by_src``."""
-    h = _to_edges(h, plan)
-    out = _SourceSum.apply(h, plan) if _record(h) else _sum_all(plan.by_src, h)
-    return _from_edges(out, plan)
+    return _SourceSum.apply(h, plan) if _record(h) else _sum_all(plan.by_src, h)
 
 
 def scatter_sum(messages, dst, n, plan: Optional[EdgePlan] = None):
     """Per-edge ``messages`` ``[E, ...]`` summed into their destination:
     ``[n, ...]`` float32, one K1 launch (edges with ``dst >= n`` reach no
-    node)."""
+    node); on an edge shard, the shard's partial sums."""
     plan = _plan_for(plan, None, dst, n, messages.device)
     cols = _cols(messages)
     if _record(cols):
         out = _ScatterSum.apply(cols, torch.as_tensor(dst, device=cols.device), plan)
     else:
         out = _sum_all(plan.by_edge, cols)
-    return _from_edges(out, plan).reshape((n,) + tuple(messages.shape[1:]))
+    return out.reshape((n,) + tuple(messages.shape[1:]))
 
 
 def scatter_mean(messages, dst, n, plan: Optional[EdgePlan] = None):
@@ -359,7 +484,8 @@ def edge_softmax(scores, dst, n, plan: Optional[EdgePlan] = None):
     The max is taken on detached scores: softmax is invariant to the shift,
     so the total gradient through it is zero (the reference differentiates
     through ``segment_max`` and gets that zero up to rounding).  An edge
-    shard takes the max over every shard (``all_reduce`` MAX)."""
+    shard takes the max over every shard (``all_reduce`` MAX) and reads the
+    whole denominator (its partial sums through g, then f)."""
     plan = _plan_for(plan, None, dst, n, scores.device)
     ed = torch.clamp(torch.as_tensor(dst, device=scores.device), max=n - 1).long()
     h = scores.shape[1]
@@ -368,7 +494,10 @@ def edge_softmax(scores, dst, n, plan: Optional[EdgePlan] = None):
         torch.distributed.all_reduce(m, op=torch.distributed.ReduceOp.MAX, group=plan.group)
     m = torch.nan_to_num(m[ed], neginf=0.0)
     e = torch.exp(scores - m)
-    z = gather_rows(scatter_sum(e, dst, n, plan), ed, plan, "dst")
+    z = scatter_sum(e, dst, n, plan)
+    if plan.group is not None:
+        z = _CopyToEdges.apply(_ReduceFromEdges.apply(z, plan.group), plan.group)
+    z = gather_rows(z, ed, plan, "dst")
     return e / torch.clamp(z, min=1e-16)
 
 
@@ -392,16 +521,21 @@ def gcn_init(generator: torch.Generator, cfg: GNNConfig):
 
 def gcn_forward(params, feats, edge_src, edge_dst, edge_w, n, cfg: GNNConfig,
                 node_spec=None, plan: Optional[EdgePlan] = None):
-    """Sym-normalized GCN.  edge_w = 1/sqrt(deg_s * deg_d) precomputed."""
+    """Sym-normalized GCN.  edge_w = 1/sqrt(deg_s * deg_d) precomputed.
+    On an edge shard (:func:`node_rows`) the result is the rank's rows."""
     dev = feats.device
     plan = _plan_for(plan, edge_src, edge_dst, n, dev)
+    rows = node_rows(plan)
+    ws = _shard_params(params["w"], plan)
     es, _ = _edges(edge_src, edge_dst, n, dev)
     w_e = torch.as_tensor(edge_w, device=dev).to(cfg.cdtype)[:, None]
     h = feats.to(cfg.cdtype)
-    for i, w in enumerate(params["w"]):
-        agg = scatter_sum(gather_rows(h, es, plan, "src") * w_e, edge_dst, n, plan)
+    for i, w in enumerate(ws):
+        x = h if i == 0 else _gathered(h, rows)  # the features are whole rows
+        agg = _scattered(scatter_sum(gather_rows(x, es, plan, "src") * w_e, edge_dst, n, plan),
+                         rows)
         h = agg @ w.to(cfg.cdtype)
-        if i < len(params["w"]) - 1:
+        if i < len(ws) - 1:
             h = F.relu(h)
     return h
 
@@ -420,10 +554,15 @@ def sage_forward(params, feats, edge_src, edge_dst, n, cfg: GNNConfig,
     """GraphSAGE, mean aggregator: K1 gathers the source nodes' rows
     itself (``by_src``), one launch a layer (:func:`source_sum`)."""
     plan = _plan_for(plan, edge_src, edge_dst, n, feats.device)
-    deg = torch.clamp(plan.in_degree, min=1.0)[:, None]
-    h = feats.to(cfg.cdtype)
+    rows = node_rows(plan)
+    params = _shard_params(params, plan)
+    deg = _own(torch.clamp(plan.in_degree, min=1.0)[:, None], rows)
+    x = feats.to(cfg.cdtype)
+    h = _own(x, rows)
     for i, (ws, wn) in enumerate(zip(params["w_self"], params["w_nbr"])):
-        agg = source_sum(h, plan) / deg
+        if i:
+            x = _gathered(h, rows)
+        agg = _scattered(source_sum(x, plan), rows) / deg
         h = h @ ws.to(cfg.cdtype) + agg @ wn.to(cfg.cdtype)
         if i < len(params["w_self"]) - 1:
             h = F.relu(h)
@@ -446,22 +585,30 @@ def gat_forward(params, feats, edge_src, edge_dst, n, cfg: GNNConfig,
                 node_spec=None, plan: Optional[EdgePlan] = None):
     dev = feats.device
     plan = _plan_for(plan, edge_src, edge_dst, n, dev)
+    rows = node_rows(plan)
+    params = _shard_params(params, plan)
     es, ed = _edges(edge_src, edge_dst, n, dev)
-    h = feats.to(cfg.cdtype)
+    h = _own(feats.to(cfg.cdtype), rows)
     nl = len(params["w"])
+    heads = cfg.n_heads
     for i in range(nl):
         d_out = cfg.d_out if i == nl - 1 else cfg.d_hidden
-        hw = (h @ params["w"][i].to(cfg.cdtype)).reshape(n, cfg.n_heads, d_out)
+        hw = (h @ params["w"][i].to(cfg.cdtype)).reshape(-1, heads, d_out)
         # a_l/a_r: [d_out, H] -> per-(node, head) scalars
         sl = torch.einsum("nhd,dh->nh", hw, params["a_l"][i].to(cfg.cdtype))
         sr = torch.einsum("nhd,dh->nh", hw, params["a_r"][i].to(cfg.cdtype))
+        if rows is not None:  # one all-gather of the rank's rows of all three
+            w = heads * d_out
+            full = rows.gather(torch.cat([hw.reshape(-1, w), sl, sr], dim=1))
+            hw, sl, sr = full.split([w, heads, heads], dim=1)  # one [n, .] gradient
+            hw = hw.reshape(n, heads, d_out)
         scores = F.leaky_relu(gather_rows(sl, es, plan, "src")
                               + gather_rows(sr, ed, plan, "dst"), 0.2)
-        alpha = edge_softmax(scores, edge_dst, n, plan)  # [E, H]
-        agg = scatter_sum(gather_rows(hw, es, plan, "src") * alpha[..., None],
-                          edge_dst, n, plan)
+        alpha = edge_softmax(scores, edge_dst, n, plan)  # [E, H], its statistics whole
+        agg = _scattered(scatter_sum(gather_rows(hw, es, plan, "src") * alpha[..., None],
+                                     edge_dst, n, plan), rows)
         if i < nl - 1:
-            h = F.elu(agg.reshape(n, cfg.n_heads * d_out))
+            h = F.elu(agg.reshape(-1, heads * d_out))
         else:
             h = agg.mean(dim=1)
     return h
@@ -487,15 +634,31 @@ def mgn_forward(params, feats, edge_feats, edge_src, edge_dst, n, cfg: GNNConfig
                 remat_chunk: int = 3, node_spec=None, plan: Optional[EdgePlan] = None):
     dev = feats.device
     plan = _plan_for(plan, edge_src, edge_dst, n, dev)
+    rows = node_rows(plan)
+    params = _shard_params(params, plan)
     es, ed = _edges(edge_src, edge_dst, n, dev)
-    h = L.mlp_apply(params["node_enc"], feats.to(cfg.cdtype))
-    e = L.mlp_apply(_edge_params(params["edge_enc"], plan), edge_feats.to(cfg.cdtype))
-    for lp in params["proc"]:
-        inp = torch.cat([e, gather_rows(h, es, plan, "src"),
-                         gather_rows(h, ed, plan, "dst")], dim=-1)
-        e = e + L.mlp_apply(_edge_params(lp["edge_mlp"], plan), inp)
-        agg = scatter_sum(e, edge_dst, n, plan)
-        h = h + L.mlp_apply(lp["node_mlp"], torch.cat([h, agg], dim=-1))
+    h = L.mlp_apply(params["node_enc"], _own(feats.to(cfg.cdtype), rows))
+    e = L.mlp_apply(params["edge_enc"], edge_feats.to(cfg.cdtype))
+
+    def run(h, e, lps):
+        for lp in lps:
+            x = _gathered(h, rows)
+            inp = torch.cat([e, gather_rows(x, es, plan, "src"), gather_rows(x, ed, plan, "dst")],
+                            dim=-1)
+            e = e + L.mlp_apply(lp["edge_mlp"], inp)
+            agg = _scattered(scatter_sum(e, edge_dst, n, plan), rows)
+            h = h + L.mlp_apply(lp["node_mlp"], torch.cat([h, agg], dim=-1))
+        return h, e
+
+    proc = params["proc"]
+    if _record(h, e, *leaves(proc)):
+        # the backward keeps each chunk's input carries (h, and e: |E| x d
+        # floats) and recomputes the chunk
+        chunk = remat_chunk if cfg.n_layers % remat_chunk == 0 else 1
+        for i in range(0, len(proc), chunk):
+            h, e = checkpoint(run, h, e, proc[i:i + chunk], use_reentrant=False)
+    else:
+        h, e = run(h, e, proc)
     return L.mlp_apply(params["node_dec"], h)
 
 

@@ -3,7 +3,8 @@
 
 * ``build_gnn_train``: the argument stand-ins and specs equal the
   reference's; over a one-device mesh the step is bitwise the one-device
-  step; over two gloo ranks (edges sharded) the loss, gradients and
+  step; over two and three gloo ranks (edges and node rows sharded, at
+  node counts the world divides and does not) the loss, gradients and
   updated params agree with one device within ``TOL * (|w1| + rms(w1))``,
   ``TOL = 1e-5`` (float32 sums in another order), and the ranks agree
   with each other to the bit.
@@ -40,11 +41,12 @@ GWQ = dict(n=500, nb=200, m=3000, l=800)
 # ---------------------------------------------------------------------- #
 #  cases shared by the test process and the spawned ranks
 # ---------------------------------------------------------------------- #
-def gnn_case(kind):
+def gnn_case(kind, n=N_NODES, world=2):
     """(cfg, params, whole batch as NumPy, dims) of ``kind``'s SMOKE config
-    on a padded graph of 256 edges (150 valid, the rest at the sink row;
-    the last 3 nodes with no incoming edge), params from the port's init
-    on a CPU generator seeded with 0."""
+    on ``n`` nodes and a padded graph of ``E_VALID`` valid edges, the rest
+    at the sink row up to a multiple of 128 x ``world`` (256 for worlds 1
+    and 2; the last 3 nodes with no incoming edge), params from the port's
+    init on a CPU generator seeded with 0."""
     from repro_torch.configs import gat_cora, gcn_cora, graphsage_reddit, meshgraphnet
     from repro_torch.models import gnn
 
@@ -54,7 +56,8 @@ def gnn_case(kind):
             "meshgraphnet": gnn.mgn_init}[kind]
     params = init(torch.Generator().manual_seed(0), cfg)
     rng = np.random.default_rng(7)
-    n, e, pad = N_NODES, E_VALID, 256 - E_VALID
+    e = E_VALID
+    pad = -(-e // (128 * world)) * 128 * world - e
     dst = np.sort(rng.integers(0, n - 3, e))
     src = rng.integers(0, n, e)
     deg_s = np.bincount(src, minlength=n).astype(np.float32)
@@ -74,14 +77,15 @@ def gnn_case(kind):
     return cfg, params, b, dict(n=n, e=e, d_feat=cfg.d_in, classes=cfg.d_out)
 
 
-def gnn_record(kind, mesh) -> dict:
-    """One step of ``build_gnn_train`` on this rank: loss, gnorm, every
-    gradient and every updated param, by name."""
+def gnn_record(kind, mesh, n=N_NODES, world=2) -> dict:
+    """One step of ``build_gnn_train`` on this rank of ``gnn_case(kind, n,
+    world)``: loss, gnorm, every gradient and every updated param, by
+    name."""
     from repro_torch.launch import steps
     from repro_torch.optim.optimizers import adamw
     from repro_torch.tree import flatten_with_paths
 
-    cfg, params, batch, dims = gnn_case(kind)
+    cfg, params, batch, dims = gnn_case(kind, n, world)
     built = steps.build_gnn_train(cfg, mesh, dims, torch_device="cpu")
     p, o, b = built.shard(params, adamw(1e-3).init(params), batch)
     plan = built.plan(p, o, b)
@@ -120,14 +124,14 @@ def _init(rank, world, store):
                             world_size=world, timeout=datetime.timedelta(seconds=120))
 
 
-def _worker_gnn(rank, world, store, out):
+def _worker_gnn(rank, world, store, out, n):
     from repro_torch.launch.mesh import make_debug_mesh
 
     _init(rank, world, store)
     mesh = make_debug_mesh(world, 1, "cpu")
     rec = {}
     for kind in KINDS:
-        rec.update(gnn_record(kind, mesh))
+        rec.update(gnn_record(kind, mesh, int(n), world))
     np.savez(f"{out}.{rank}.npz", **rec)
 
 
@@ -173,10 +177,11 @@ def _worker_ref_gwq(rank, world, store, out):
 _WORKERS = {"gnn": _worker_gnn, "gwq": _worker_gwq, "ref_gwq": _worker_ref_gwq}
 
 
-def _spawn(worker: str, world: int, tmp_path, env_extra=None) -> list:
+def _spawn(worker: str, world: int, tmp_path, env_extra=None, extra=()) -> list:
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1",
            **(env_extra or {})}
-    args = [str(tmp_path / f"store_{worker}"), str(tmp_path / f"out_{worker}")]
+    args = [str(tmp_path / f"store_{worker}"), str(tmp_path / f"out_{worker}"),
+            *map(str, extra)]
     procs = [subprocess.Popen([sys.executable, __file__, worker, str(r), str(world), *args],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                               env=env, cwd=ROOT) for r in range(world)]
@@ -296,18 +301,76 @@ def test_gnn_world1_mesh_step_is_bitwise_the_one_device_step(one_device_mesh):
             assert a[k].tobytes() == b[k].tobytes(), k
 
 
-def test_gnn_world2_edge_sharded_matches_world1(tmp_path):
-    """Two gloo ranks, each on half the edges, node rows replicated: both
-    ranks hold the same loss, gradients and params to the bit, within
-    ``TOL`` of one device."""
-    outs = _spawn("gnn", 2, tmp_path)
+def node_rows_collectives(kind, n_layers):
+    """(all-gathers, reduce-scatters) of one node-sharded step: forward, a
+    gather of each layer's input rows but the features (every layer's for
+    GAT and MeshGraphNet) and a reduce-scatter of each layer's sums;
+    backward, the other collective of each pair whose input needs a
+    gradient (not GCN's and GraphSAGE's first sums, of the features);
+    MeshGraphNet's recomputed forward reissues its pair a step."""
+    if kind in ("gcn", "sage"):
+        return 2 * (n_layers - 1), 2 * n_layers - 1
+    if kind == "gat":
+        return 2 * n_layers, 2 * n_layers
+    return 3 * n_layers, 3 * n_layers
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_gnn_world1_node_rows_step_is_bitwise_the_one_device_step(kind, one_device_mesh,
+                                                                  monkeypatch):
+    """An edge plan over the world of one takes the node-sharded path (the
+    all-gathers, the reduce-scatters, every param through f), where one
+    rank owns every row: loss, gnorm and updated params and moments equal
+    the group-less plan's to the bit, and the step issues each collective
+    where the data flow puts it (MeshGraphNet's remat reissues its pair in
+    the backward)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import steps
+    from repro_torch.models import gnn
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.tree import leaves
+
+    cfg, params, batch, dims = gnn_case(kind)
+    built = steps.build_gnn_train(cfg, None, dims, torch_device="cpu")
+    p, o, b = built.shard(params, adamw(1e-3).init(params), batch)
+    plan = built.plan(p, o, b)
+    want = built.fn(p, o, b, plan=plan)
+    counts = {"all_gather": 0, "reduce_scatter": 0}
+
+    def counted(name, real):
+        def call(x, rows):
+            counts[name] += 1
+            return real(x, rows)
+        return call
+
+    for name in counts:
+        monkeypatch.setattr(gnn, f"_{name}", counted(name, getattr(gnn, f"_{name}")))
+    got = built.fn(p, o, b, plan=dataclasses.replace(plan, group=dist.group.WORLD))
+    assert tuple(counts.values()) == node_rows_collectives(kind, cfg.n_layers)
+    assert len(leaves(got)) == len(leaves(want))
+    assert all(torch.equal(x, y) for x, y in zip(leaves(got), leaves(want)))
+
+
+@pytest.mark.parametrize("world,n", [(2, N_NODES), (2, 41), (3, 41)],
+                         ids=["w2-n40", "w2-n41", "w3-n41"])
+def test_gnn_world2_edge_sharded_matches_world1(world, n, tmp_path):
+    """``world`` gloo ranks, each on its share of the edges (at world 3
+    the last rank's edges are all padding) and of the ``n`` node rows
+    (``ceil(n / world)`` each, fewer on the last rank where the world does
+    not divide ``n``): every rank holds the same loss, gradients and
+    params to the bit, within ``TOL`` of one device on the same graph."""
+    outs = _spawn("gnn", world, tmp_path, extra=(n,))
     ranks = [dict(np.load(f"{p}.npz")) for p in outs]
-    assert ranks[0].keys() == ranks[1].keys()
-    for k in ranks[0]:
-        assert ranks[0][k].tobytes() == ranks[1][k].tobytes(), k
+    for other in ranks[1:]:
+        assert ranks[0].keys() == other.keys()
+        for k in ranks[0]:
+            assert ranks[0][k].tobytes() == other[k].tobytes(), k
     want = {}
     for kind in KINDS:
-        want.update(gnn_record(kind, None))
+        want.update(gnn_record(kind, None, n, world))
     assert want.keys() == ranks[0].keys()
     for k in want:
         if k.endswith("loss") or k.endswith("gnorm"):
@@ -377,4 +440,4 @@ def test_gwq_2x2_bitwise_reference(tmp_path):
 
 
 if __name__ == "__main__":
-    _WORKERS[sys.argv[1]](int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    _WORKERS[sys.argv[1]](int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:])
