@@ -212,9 +212,22 @@ Phases, one JSON object per line:
     recomputed chunks' host time, the garbage collector's time, and each
     one's peak memory.
     ``kernel:segment_sum_bwd`` — K1 as its own backward at ogbn-products'
-    layer 2 (C = 128, the source-sorted layout's ``by_src_dst``): bitwise
-    across two launches, within ``GNN_TOL`` of its plain version; timed
-    beside it, ``index_add_`` on its gathered rows and its bound.
+    layer 2 (C = 128, the source-sorted layout's ``by_src_dst``; the wide
+    route, counted): bitwise across two launches, within ``GNN_TOL`` of its
+    plain version; timed beside it, ``index_add_`` on its gathered rows,
+    its bound and its streamed bound (every valid row's gathered row read
+    from HBM).  15a and 15a' report the routes their K1 launches took; K1's
+    device time there holds the wide route's fixup kernel, whose share is
+    reported beside it.
+    ``kernel:segment_sum_routes`` — K1's two routes (the route table,
+    ``NARROW_MAX_C``) on plans the run already builds: Cora's GCN plan
+    over per-edge rows (C = 32, 33, 64, 100, 128, 1,433) and
+    ogbn-products' SAGE plan (C = 100, 128): each route at each C
+    bitwise the plain version on integer values, within ``GNN_TOL`` *
+    (|plain| + rms) on normal ones, bitwise across two launches, its
+    launches counted on its route; timed beside ``index_add_``, the bound
+    and the streamed bound; ptxas's registers and spills of each route's
+    kernels.
     ``gwq`` — ``launch/steps.build_gwq_step`` at ``query_lj``'s full dims
     (n 3,997,962, nb 2,000,000, m 53,437,500, l 6,000,000) on one card,
     on a seeded plan with integer attributes: 2 K1 launches, bitwise
@@ -326,7 +339,11 @@ Phases, one JSON object per line:
     them; the K2 phase and phase 5's BFS leg draw from a generator of their
     own, so neither shifts a draw of the main path.
 17. ``done`` — the run's seconds; then ``kernels``, one line per the
-    repo's reporting contract; then the card line from ``nvidia-smi``;
+    repo's reporting contract (K1's and K1 backward's launches by route
+    are ``launches_by_route``'s counts, reset and read with ``launches``
+    phase by phase (:func:`k1_counts`) and added up as it is; the window
+    path's all narrow, each split adding up to its launches); then the
+    card line from ``nvidia-smi``;
     then the ``{"ok": true, ...}`` line.
 
 Any failed check raises and the script exits non-zero; without CUDA it
@@ -539,6 +556,55 @@ def k1_bound(tp, x, out) -> tuple:
     moved = (2 * valid_rows * 4 + gathered * x.shape[1] * x.element_size()
              + nbytes(tp.m2out, out))
     return bound_ms(moved, valid_rows * x.shape[1])
+
+
+def k1_streamed_bound(tp, x, out) -> tuple:
+    """K1's least time for one launch if every valid plan row's gathered
+    row comes from device memory (no reuse; :func:`bound_ms`): each valid
+    row's gather index, segment id and 4 C value bytes, ``m2out`` and the
+    output; the operations one per valid row and column."""
+    ok = tp.seg_tiles.reshape(-1) >= 0
+    valid_rows = int(ok.sum())
+    moved = valid_rows * (8 + x.shape[1] * x.element_size()) + nbytes(tp.m2out, out)
+    return bound_ms(moved, valid_rows * x.shape[1])
+
+
+# K1's keys in a phase's ``launches``: all its launches, then by route
+K1_KEYS = ("segment_sum", "segment_sum_narrow", "segment_sum_wide")
+
+
+def k1_counts() -> dict:
+    """K1's launch counter and its split by route
+    (``segment_sum_tiled.launches_by_route``), read together, under
+    ``K1_KEYS``."""
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
+
+    by_route = segment_sum_tiled.launches_by_route
+    return {"segment_sum": segment_sum_tiled.launches,
+            "segment_sum_narrow": by_route["narrow"], "segment_sum_wide": by_route["wide"]}
+
+
+def k1_since(before: dict) -> dict:
+    """K1's launches, all and by route, since ``before`` (:func:`k1_counts`)."""
+    return {key: n - before[key] for key, n in k1_counts().items()}
+
+
+def k1_set(counts: dict | None = None) -> None:
+    """Set K1's launch counter and its split by route to ``counts``
+    (:func:`k1_counts`), or to 0."""
+    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
+
+    counts = counts or dict.fromkeys(K1_KEYS, 0)
+    segment_sum_tiled.launches = counts["segment_sum"]
+    segment_sum_tiled.launches_by_route.update(narrow=counts["segment_sum_narrow"],
+                                               wide=counts["segment_sum_wide"])
+
+
+def add_counts(into: dict, more: dict) -> dict:
+    """Add each count of ``more`` to ``into`` (a missing key from 0)."""
+    for key, n in more.items():
+        into[key] = into.get(key, 0) + n
+    return into
 
 
 def kernel_segment_sum(plan, vals, dev, reps, rng):
@@ -918,7 +984,7 @@ def drive_main_path(sess, state, args, rng):
     default_policy = StalenessPolicy()
     verts = np.sort(rng.choice(sess.graph.n, args.oracle_vertices, replace=False))
     vb = rng.integers(0, 100, (8, sess.graph.n)).astype(np.float64)
-    segment_sum_tiled.launches = 0
+    k1_set()
     bitset_expand_tiled.launches = 0
     t = time.perf_counter()
     res = sess.run()
@@ -977,7 +1043,7 @@ def drive_main_path(sess, state, args, rng):
     rep, reorg_ms = step(args.batches + 1)
     state.policy = deferred
     check(bool(rep["reorganized"]), "the default-policy batch did not reorganize")
-    launches = {"segment_sum": segment_sum_tiled.launches,
+    launches = {**k1_counts(),
                 "bitset_expand": bitset_expand_tiled.launches}
     return {
         "run_ms": statistics.median(run_ms), "run_ms_first": run_ms[0],
@@ -1064,7 +1130,7 @@ def serve_window(sess, state, policy, args, rng, dev):
                 index, graph.attrs["val"] if vals is None else vals)
         return expected[(version, key)]
 
-    segment_sum_tiled.launches = 0
+    k1_set()
     bitset_expand_tiled.launches = 0
     signatures0 = recompile_count()
     out = {}
@@ -1262,7 +1328,7 @@ def serve_window(sess, state, policy, args, rng, dev):
     del restored
     shutil.rmtree(tmp, ignore_errors=True)
     out["signatures_delta"] = recompile_count() - signatures0
-    out["launches"] = {"segment_sum": segment_sum_tiled.launches,
+    out["launches"] = {**k1_counts(),
                        "bitset_expand": bitset_expand_tiled.launches}
     return out
 
@@ -1592,7 +1658,7 @@ def topo_session(sess, state, args, rng, dev):
                       f"topo run v{version} vs set evaluation")
         return ms
 
-    segment_sum_tiled.launches = 0
+    k1_set()
     inherit_scan.launches = 0
     run_ms = [checked_run(0)]
     check(segment_sum_tiled.launches == 1 and inherit_scan.launches == 1,
@@ -1652,7 +1718,7 @@ def topo_session(sess, state, args, rng, dev):
         "random_batch_update_ms": rebuild_ms, "depth_after": state.plan.max_level,
         "plan_bytes_after": state.plan.plan_nbytes(),
         "chains_after": topo_chains(state.index.pid, state.index.level),
-        "launches": {"segment_sum": segment_sum_tiled.launches,
+        "launches": {**k1_counts(),
                      "inherit_scan": inherit_scan.launches},
         "oracle_vertices": int(verts.size),
     }
@@ -1684,7 +1750,6 @@ def explain_analyze(sess, state, dev, phases, k1_per_run, scans_per_run):
     launches too)."""
     from repro_torch.core.api import recompile_count
     from repro_torch.kernels.inherit_scan.inherit_scan import inherit_scan
-    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
 
     sess._result_cache = None  # the serving phase's cache: run() launches again
     t = time.perf_counter()
@@ -1701,12 +1766,12 @@ def explain_analyze(sess, state, dev, phases, k1_per_run, scans_per_run):
     want = sess.run()
     c0 = recompile_count()
     sess.analyze()
-    segment_sum_tiled.launches = 0
+    k1_set()
     inherit_scan.launches = 0
     arep = sess.analyze()
-    launches = {"segment_sum": segment_sum_tiled.launches,
+    launches = {**k1_counts(),
                 "inherit_scan": inherit_scan.launches}
-    check(launches == {"segment_sum": k1_per_run, "inherit_scan": scans_per_run},
+    check((launches["segment_sum"], launches["inherit_scan"]) == (k1_per_run, scans_per_run),
           f"analyze() made {launches}, not {k1_per_run} K1 and {scans_per_run} scan launches")
     check(recompile_count() == c0, "analyze() recorded a plan signature")
     got = {p["phase"] for p in arep.phases}
@@ -1935,6 +2000,9 @@ def fm_close(got, want, emb):
 #: first launches (on the H100 machine, more the longer the process ran),
 #: so without the pad a short call can vanish from its trace
 PROFILE_PAD_LAUNCHES = 2000
+# K1's kernels by name: each launch's kernel (either route's), and the
+# fixup kernel that the wide route's entry point launches right after it
+K1_EVENT, K1_FIXUP = "segment_reduce_kernel", "segment_reduce_wide_fixup"
 
 
 def device_profile(fn, dev, unprofiled_ms, match=(), names=False):
@@ -1944,8 +2012,10 @@ def device_profile(fn, dev, unprofiled_ms, match=(), names=False):
     ``unprofiled_ms``, the unprofiled median wall time of the same call,
     which gives the device's idle share; for each substring in ``match``,
     the device time and share of the events whose name holds it, and each
-    such event's device time in launch order; with ``names``, every
-    device event's time by name.  The profiler's own host overhead is
+    such event's device time in launch order (for ``K1_EVENT``, a wide
+    launch's time holds the ``K1_FIXUP`` kernel that follows it, and
+    ``fixup_ms`` the fixups' share); with ``names``, every device event's
+    time by name.  The profiler's own host overhead is
     inside ``wall_ms_profiled`` only."""
     import torch
     from torch.autograd import DeviceType
@@ -1973,12 +2043,21 @@ def device_profile(fn, dev, unprofiled_ms, match=(), names=False):
                       key=lambda e: e.time_range.start)
     matched = {}
     for sub in match:
-        ms = sum(e.self_device_time_total for e in events if sub in e.key) / 1e3
+        by_launch, fixup_ms = [], 0.0
+        for e in launches:
+            if sub in e.name:
+                by_launch.append(e.self_device_time_total / 1e3)
+            elif sub == K1_EVENT and K1_FIXUP in e.name:
+                check(bool(by_launch), "a K1 fixup kernel ran before any K1 kernel")
+                by_launch[-1] += e.self_device_time_total / 1e3
+                fixup_ms += e.self_device_time_total / 1e3
+        ms = sum(e.self_device_time_total for e in events if sub in e.key) / 1e3 + fixup_ms
         matched[sub] = {"device_ms": ms, "launches": sum(e.count for e in events
                                                          if sub in e.key),
                         "share_of_device": ms / device_ms if events else "not measured",
-                        "by_launch_ms": [e.self_device_time_total / 1e3
-                                         for e in launches if sub in e.name]}
+                        "by_launch_ms": by_launch}
+        if sub == K1_EVENT:
+            matched[sub]["fixup_ms"] = fixup_ms
     out = {
         "matched": matched,
         "wall_ms_profiled": wall_ms_profiled,
@@ -2438,7 +2517,6 @@ def gnn_case(arch: str, shape: str, args, dev) -> dict:
     import torch
 
     from repro_torch.configs.registry import ARCH_MODULES, GNN_SHAPES
-    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
     from repro_torch.models import gnn
 
     dims = GNN_SHAPES[shape].dims
@@ -2479,10 +2557,11 @@ def gnn_case(arch: str, shape: str, args, dev) -> dict:
             return gnn.gat_forward(params, x, src_t, dst_t, n, cfg, plan=plan)
         return gnn.mgn_forward(params, x, extra["ef"], src_t, dst_t, n, cfg, plan=plan)
 
-    before = segment_sum_tiled.launches
+    before = k1_counts()
     out = forward()
     torch.cuda.synchronize(dev)
-    launches = segment_sum_tiled.launches - before
+    first = k1_since(before)
+    launches = first["segment_sum"]
     want_launches = GNN_K1_PER_LAYER[cfg.kind] * cfg.n_layers
     check(launches == want_launches,
           f"{arch} at {shape}: {launches} K1 launches a forward, not {want_launches}")
@@ -2490,9 +2569,10 @@ def gnn_case(arch: str, shape: str, args, dev) -> dict:
           f"{arch} at {shape}: output {tuple(out.shape)} or not finite")
     again = forward()
     torch.cuda.synchronize(dev)
-    both = segment_sum_tiled.launches - before
-    check(both == 2 * want_launches,
-          f"{arch} at {shape}: {both} K1 launches in two forwards, not {2 * want_launches}")
+    both = k1_since(before)
+    check(both["segment_sum"] == 2 * want_launches,
+          f"{arch} at {shape}: {both['segment_sum']} K1 launches in two forwards, not "
+          f"{2 * want_launches}")
     check(torch.equal(out, again), f"{arch} at {shape}: two forwards differ")
     with mock.patch.object(gnn, "segment_reduce_multi", plain_k1):
         plain = forward()
@@ -2507,16 +2587,17 @@ def gnn_case(arch: str, shape: str, args, dev) -> dict:
           f"{arch} at {shape}: off from the plain forward by {err} (the bound "
           f"{GNN_TOL} * (|plain| + {rms}) exceeded {worst} times)")
     ms = time_ms(forward, dev, max(3, args.reps // 4))
-    prof = device_profile(forward, dev, ms, match=("segment_reduce_kernel",))
-    traced = prof["matched"]["segment_reduce_kernel"]["launches"]
+    prof = device_profile(forward, dev, ms, match=(K1_EVENT,))
+    traced = prof["matched"][K1_EVENT]["launches"]
     check(traced == launches, f"{arch} at {shape}: the profiled forward ran K1 {traced} times")
     # K1's bound in one more forward: each launch's inputs as it gets them;
     # then index_add_ on each sum launch's gathered rows and segment ids
-    real, k1_bounds, k1_calls = gnn.segment_reduce_multi, [], []
+    real, k1_bounds, k1_streamed, k1_calls = gnn.segment_reduce_multi, [], [], []
 
     def bounded(tp, values, monoids):
         got = real(tp, values, monoids)
         k1_bounds.append(k1_bound(tp, values, got)[0])
+        k1_streamed.append(k1_streamed_bound(tp, values, got)[0])
         k1_calls.append((tp, values, monoids, got))
         return got
 
@@ -2526,7 +2607,7 @@ def gnn_case(arch: str, shape: str, args, dev) -> dict:
     while k1_calls:
         index_add_ms.append(k1_index_add_ms(*k1_calls.pop(0), dev, max(3, args.reps // 4)))
         torch.cuda.empty_cache()
-    k1_device_ms = prof["matched"]["segment_reduce_kernel"]["device_ms"]
+    k1_device_ms = prof["matched"][K1_EVENT]["device_ms"]
     lib_ms = None if None in index_add_ms else sum(index_add_ms)
     n_params = sum(int(t.numel()) for t in _leaves(params))
     del out, again, plain, diff, mag
@@ -2538,6 +2619,11 @@ def gnn_case(arch: str, shape: str, args, dev) -> dict:
                                                 n, e, args, dev)
     k1_bwd = kernel_k1_bwd(plan, n, args, dev) if shape == "ogb_products" else None
     del x, extra, batch
+    torch.cuda.empty_cache()
+    if (arch, shape) == ("gcn-cora", "full_graph_sm"):
+        k1_routes("cora_gcn_by_edge", plan.by_edge, int(src.size), args, dev)
+    if shape == "ogb_products":
+        k1_routes("ogb_products_sage_by_src", plan.by_src, n, args, dev)
     serve = {
         "arch": arch, "shape": shape, "n": n, "edges": e, "edges_padded": int(src.size),
         "d_in": cfg.d_in, "d_hidden": cfg.d_hidden, "d_out": cfg.d_out,
@@ -2547,11 +2633,16 @@ def gnn_case(arch: str, shape: str, args, dev) -> dict:
         "tol": f"{GNN_TOL} * (|plain| + rms)", "plain_rms": rms,
         "plain_median_abs": med, "plain_max_abs": top,
         "share_of_tol": worst,
-        "k1_launches_per_forward": launches, "bitwise_repeat": True,
+        "k1_launches_per_forward": launches,
+        "k1_launches_by_route": {"narrow": first["segment_sum_narrow"],
+                                 "wide": first["segment_sum_wide"]},
+        "bitwise_repeat": True,
         "device_ms": prof["device_ms"], "device_idle_share": prof["device_idle_share"],
         "k1_device_ms": k1_device_ms,
-        "k1_by_launch_ms": prof["matched"]["segment_reduce_kernel"]["by_launch_ms"],
+        "k1_by_launch_ms": prof["matched"][K1_EVENT]["by_launch_ms"],
+        "k1_wide_fixup_device_ms": prof["matched"][K1_EVENT]["fixup_ms"],
         "k1_bound_ms": sum(k1_bounds), "k1_bound_by_launch_ms": k1_bounds,
+        "k1_streamed_bound_ms": sum(k1_streamed), "k1_streamed_bound_by_launch_ms": k1_streamed,
         "k1_index_add_ms": lib_ms, "k1_index_add_ms_by_launch": index_add_ms,
         "k1_ms_over_index_add": k1_device_ms / lib_ms if lib_ms else None,
         "top_device_events": prof["top_device_events"][:5],
@@ -2587,6 +2678,91 @@ def k1_index_add_ms(tp, values, monoids, got, dev, reps):
     return ms
 
 
+# K1's two routes on plans the run builds anyway, at these column counts:
+# on Cora's, each side of NARROW_MAX_C and the GNN widths; on
+# ogbn-products', SAGE's two (the sweep that chose NARROW_MAX_C is in
+# kernels/segment_reduce/segment_reduce.py and PERF.md)
+K1_ROUTE_COLUMNS = {"cora_gcn_by_edge": (32, 33, 64, 100, 128, 1433),
+                    "ogb_products_sage_by_src": (100, 128)}
+_K1_ROUTES = {}  # what k1_routes measured, by plan: the kernel:segment_sum_routes line
+
+
+def k1_routes(label, tp, n_values, args, dev) -> None:
+    """Both K1 routes on plan ``tp`` over seeded ``[n_values, C]`` values
+    at each C of ``K1_ROUTE_COLUMNS[label]``: on integer values bitwise the
+    plain version (chunked, :func:`plain_k1`), on normal values within
+    ``GNN_TOL`` * (|plain| + rms(plain)), bitwise across two launches, each
+    launch counted on its route (the other route than the table's taken
+    with ``NARROW_MAX_C`` moved past C); each route timed (:func:`time_ms`)
+    beside ``index_add_`` on the pre-gathered rows, the bound and the
+    streamed bound.  Kept in ``_K1_ROUTES[label]``."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.kernels.segment_reduce import segment_reduce as k1mod
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 36)
+    reps, s, by_route = max(3, args.reps // 4), tp.num_segments, \
+        k1mod.segment_sum_tiled.launches_by_route
+    rows = {"plan_rows": int(tp.seg_tiles.numel()),
+            "valid_rows": int((tp.seg_tiles >= 0).sum()), "values_rows": n_values,
+            "wide_slice_rows": k1mod.wide_slice_rows(int(tp.seg_tiles.numel()))}
+    for c in K1_ROUTE_COLUMNS[label]:
+        monoids = (c, 0, 0)
+        xi = torch.randint(0, 100, (n_values, c), generator=gen, device=dev).float()
+        x = torch.randn((n_values, c), generator=gen, device=dev)
+        plain_i, plain = plain_k1(tp, xi, monoids), plain_k1(tp, x, monoids)
+        rms = plain.pow(2).mean().sqrt()
+        row = {"table": k1mod.route(c)}
+        for kernel in k1mod.ROUTES:
+            def call(v):
+                return k1mod.segment_reduce_tiled(
+                    v, tp.gather_padded, tp.seg_tiles, tp.m2out, monoids=monoids,
+                    num_out_tiles=tp.num_out_tiles, tm=tp.tm, ts=tp.ts)
+
+            before = dict(by_route)
+            with mock.patch.object(k1mod, "NARROW_MAX_C", c if kernel == "narrow" else c - 1):
+                got_i, got, again = call(xi), call(x), call(x)
+                torch.cuda.synchronize(dev)
+                check(by_route == {**before, kernel: before[kernel] + 3},
+                      f"K1 {label} C={c}: launches by route {by_route}, not 3 more {kernel}")
+                check(torch.equal(got_i[:s], plain_i),
+                      f"K1 {label} C={c} {kernel}: integer values not bitwise the plain "
+                      "version")
+                check(torch.equal(got, again), f"K1 {label} C={c} {kernel}: two launches "
+                      "differ")
+                diff = (got[:s] - plain).abs()
+                worst = float((diff / (GNN_TOL * (plain.abs() + rms))).max())
+                check(worst <= 1.0, f"K1 {label} C={c} {kernel}: off the plain version by "
+                      f"{worst} of the bound")
+                row[kernel] = {"ms": time_ms(lambda: call(x), dev, reps),
+                               "max_abs_err": float(diff.max()), "share_of_tol": worst}
+            del got_i, again, diff
+        row["bound_ms"], row["bound_by"] = k1_bound(tp, x, got)
+        row["streamed_bound_ms"] = k1_streamed_bound(tp, x, got)[0]
+        row["library_ms"] = k1_index_add_ms(tp, x, monoids, got, dev, reps)
+        row["faster"] = min(k1mod.ROUTES, key=lambda k: row[k]["ms"])
+        rows[c] = row
+        del xi, x, plain_i, plain, got
+        torch.cuda.empty_cache()
+    _K1_ROUTES[label] = rows
+
+
+def k1_ptxas_by_route() -> dict:
+    """Registers and spill bytes of each K1 route's kernels from the
+    library's ptxas log."""
+    from repro_torch.kernels import build
+
+    funcs = build.ptxas_report("segment_sum")["functions"]
+    names = {"narrow": ("segment_reduce_kernelI",),
+             "wide": ("segment_reduce_kernel_wide", "segment_reduce_wide_fixup")}
+    return {route: {name: {key: f.get(key) for key in
+                           ("registers", "spill_stores", "spill_loads")}
+                    for name, f in funcs.items() if any(sub in name for sub in subs)}
+            for route, subs in names.items()}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2606,17 +2782,17 @@ def khop_features(state, args, dev) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
     from repro_torch.models import gnn
 
     n = state.plan.n
     x = np.random.default_rng(args.seed + 20).integers(0, 100, (n, GNN_KHOP_D))
     xt = torch.from_numpy(x.astype(np.float32)).to(dev)
-    before = segment_sum_tiled.launches
+    before = k1_counts()
     got = gnn.khop_aggregate(state.plan, xt)
     torch.cuda.synchronize(dev)
-    launches = segment_sum_tiled.launches - before
-    check(launches == 2, f"khop_aggregate made {launches} K1 launches, not 2")
+    launches = k1_since(before)
+    check(launches["segment_sum"] == 2,
+          f"khop_aggregate made {launches['segment_sum']} K1 launches, not 2")
     check(tuple(got.shape) == (n, GNN_KHOP_D), f"khop_aggregate returned {tuple(got.shape)}")
     got = got.cpu().numpy()
     for j in range(GNN_KHOP_D):
@@ -2624,7 +2800,7 @@ def khop_features(state, args, dev) -> dict:
         check(np.array_equal(got[:, j].astype(np.float64), want.astype(np.float64)),
               f"khop_aggregate column {j} differs from the host index")
     ms = time_ms(lambda: gnn.khop_aggregate(state.plan, xt), dev, args.reps)
-    return {"n": n, "d": GNN_KHOP_D, "k1_launches": launches, "ms": ms,
+    return {"n": n, "d": GNN_KHOP_D, "k1_launches": launches["segment_sum"], "ms": ms,
             "check": "bitwise the host index, every column"}, launches
 
 
@@ -2633,20 +2809,21 @@ def serve_gnn(args, dev, khop) -> tuple:
     trained, one after the other, each freed before the next; ``khop`` is
     the k-hop part, run earlier on the main session.  Returns the
     ``serve_gnn`` and ``train_gnn`` lines, the K1 launches of their counted
-    runs, those of the training backward alone, and K1's backward launch
-    at ogbn-products (:func:`kernel_k1_bwd`)."""
+    runs, those of the training backward alone, K1's backward launch at
+    ogbn-products (:func:`kernel_k1_bwd`); launches all and by route
+    (``K1_KEYS``, the backward's under ``segment_sum_bwd``)."""
     import torch
 
     check(not torch.backends.cuda.matmul.allow_tf32,
           "float32 matmuls must not run in TF32 (the reference's float32)")
     t_phase = time.perf_counter()
-    cases, trains, launches, bwd_launches, k1_bwd = [], [], 0, 0, None
+    cases, trains, launches, bwd_launches, k1_bwd = [], [], dict(khop[1]), {}, None
     for arch, shape in GNN_CASES:
         case, k1, train, train_k1, train_bwd, bwd_row = gnn_case(arch, shape, args, dev)
         cases.append(case)
         trains.append(train)
-        launches += k1 + train_k1
-        bwd_launches += train_bwd
+        add_counts(add_counts(launches, k1), train_k1)
+        add_counts(bwd_launches, train_bwd)
         k1_bwd = bwd_row or k1_bwd
         torch.cuda.empty_cache()
     mgn = [{"shape": t["shape"], "k1_launches_per_step": t["k1_launches_per_step"],
@@ -2656,7 +2833,7 @@ def serve_gnn(args, dev, khop) -> tuple:
            for t in trains if t["arch"] == "meshgraphnet"]
     return ({"cases": cases, "khop_aggregate": khop[0]},
             {"meshgraphnet": mgn, "cases": trains, "seconds": time.perf_counter() - t_phase},
-            launches + khop[1], bwd_launches, k1_bwd)
+            launches, bwd_launches, k1_bwd)
 
 
 # ---------------------------------------------------------------------- #
@@ -2766,8 +2943,8 @@ class RematProbe:
     """Stands in for ``models/gnn.py``'s ``checkpoint``: each chunk's body
     runs under the real one, and each call of it is recorded: whether it
     is the backward's recompute (a body's second call), the index of its
-    first K1 launch counted from :meth:`reset`, its K1 launches and its
-    host ms."""
+    first K1 launch counted from :meth:`reset`, its K1 launches (and those
+    on the wide route) and its host ms."""
 
     def __init__(self, real):
         self.real, self.calls, self.start = real, [], 0
@@ -2784,11 +2961,13 @@ class RematProbe:
 
         def body(*a):
             t, before = time.perf_counter(), segment_sum_tiled.launches
+            wide = segment_sum_tiled.launches_by_route["wide"]
             try:
                 return fn(*a)
             finally:  # a recompute may stop early, by an exception
                 self.calls.append({"recompute": bool(seen), "first": before - self.start,
                                    "launches": segment_sum_tiled.launches - before,
+                                   "wide": segment_sum_tiled.launches_by_route["wide"] - wide,
                                    "ms": (time.perf_counter() - t) * 1e3})
                 seen.append(True)
 
@@ -2798,6 +2977,10 @@ class RematProbe:
         """The recomputes' K1 launches, by index from :meth:`reset`."""
         return [i for c in self.calls if c["recompute"]
                 for i in range(c["first"], c["first"] + c["launches"])]
+
+    def recomputed_wide(self) -> int:
+        """The recomputes' K1 launches on the wide route."""
+        return sum(c["wide"] for c in self.calls if c["recompute"])
 
 
 def node_rows_collectives(kind, n_layers) -> tuple:
@@ -2861,7 +3044,6 @@ def gnn_train_case(arch, shape, cfg, plan, params, batch, n, e, args, dev) -> tu
     import torch
 
     from repro_torch.configs.registry import GNN_SHAPES
-    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
     from repro_torch.launch import steps
     from repro_torch.models import gnn
     from repro_torch.optim.optimizers import _global_norm
@@ -2879,14 +3061,22 @@ def gnn_train_case(arch, shape, cfg, plan, params, batch, n, e, args, dev) -> tu
     probe = RematProbe(gnn.checkpoint)
     with mock.patch.object(gnn, "checkpoint", probe):
         probe.reset()
-        before = segment_sum_tiled.launches
+        before = k1_counts()
         loss = steps.gnn_loss(unflatten(params, live), batch, cfg, n, plan=plan)
         torch.cuda.synchronize(dev)
-        fwd = segment_sum_tiled.launches - before
+        fwd = k1_since(before)
         grads = torch.autograd.grad(loss, live)
         torch.cuda.synchronize(dev)
+    step = k1_since(before)
     rec = len(probe.recomputed())
-    bwd = segment_sum_tiled.launches - before - fwd - rec
+    # by route: the forward's, the recomputes' (the probe's), the backward's
+    rec_wide = probe.recomputed_wide()
+    routes = {"forward": {"narrow": fwd["segment_sum_narrow"], "wide": fwd["segment_sum_wide"]},
+              "recompute": {"narrow": rec - rec_wide, "wide": rec_wide}}
+    routes["backward"] = {r: step[f"segment_sum_{r}"] - fwd[f"segment_sum_{r}"]
+                          - routes["recompute"][r] for r in ("narrow", "wide")}
+    fwd = fwd["segment_sum"]
+    bwd = step["segment_sum"] - fwd - rec
     bwd_layers = cfg.n_layers - 1 if cfg.kind in ("gcn", "sage") else cfg.n_layers
     want = (GNN_K1_PER_LAYER[cfg.kind] * cfg.n_layers,
             GNN_K1_RECOMPUTE_PER_LAYER[cfg.kind] * cfg.n_layers,
@@ -2966,9 +3156,9 @@ def gnn_train_case(arch, shape, cfg, plan, params, batch, n, e, args, dev) -> tu
     step_ms = statistics.median(h["ms"] for h in history[1:])
     with mock.patch.object(gnn, "checkpoint", probe):
         prof = device_profile(lambda: (probe.reset(), built.fn(p, o, batch, plan=plan)),
-                              dev, step_ms, match=("segment_reduce_kernel",), names=True)
+                              dev, step_ms, match=(K1_EVENT,), names=True)
     recomputed = set(probe.recomputed())
-    k1 = prof["matched"]["segment_reduce_kernel"]
+    k1 = prof["matched"][K1_EVENT]
     check(k1["launches"] == fwd + rec + bwd and len(recomputed) == rec,
           f"{arch} at {shape}: the profiled step ran K1 {k1['launches']} times, "
           f"{len(recomputed)} of them recomputing")
@@ -2990,6 +3180,7 @@ def gnn_train_case(arch, shape, cfg, plan, params, batch, n, e, args, dev) -> tu
         "source_layout_s": layout_s, "source_layout_bytes": plan.source_nbytes(),
         "plan_bytes": plan.plan_nbytes(),
         "k1_launches_per_step": {"forward": fwd, "recompute": rec, "backward": bwd},
+        "k1_launches_by_route": routes,
         "step1": {"loss": float(loss), "plain_loss": float(p_loss), "loss_rel": loss_rel,
                   "gnorm": gnorm, "plain_gnorm": p_gnorm, "gnorm_rel": gnorm_rel,
                   "grad_share_of_tol": worst, "grad_share_of_tol_by_leaf": shares,
@@ -3003,13 +3194,15 @@ def gnn_train_case(arch, shape, cfg, plan, params, batch, n, e, args, dev) -> tu
         "profile": {"device_ms": device_ms, "device_idle_share": prof["device_idle_share"],
                     "k1_forward_ms": k1_fwd_ms, "k1_recompute_ms": k1_rec_ms,
                     "k1_backward_ms": k1_bwd_ms,
+                    "k1_wide_fixup_ms": k1["fixup_ms"],
                     **{f"{name}_ms": ms for name, ms in by_kind.items()},
                     "other_ms": (device_ms - k1_fwd_ms - k1_rec_ms - k1_bwd_ms
                                  - sum(by_kind.values())
                                  if isinstance(device_ms, float) else "not measured"),
                     "k1_backward_by_launch_ms": k1_bwd_by_launch,
                     "top_device_events": prof["top_device_events"][:6]},
-    }, fwd + rec + bwd, bwd
+    }, step, {"segment_sum_bwd": bwd, "segment_sum_bwd_narrow": routes["backward"]["narrow"],
+              "segment_sum_bwd_wide": routes["backward"]["wide"]}
 
 
 def world1_mesh_step(cfg, dims, params, opt0, batch, one_card, built, plan, dev) -> dict:
@@ -3139,19 +3332,24 @@ def kernel_k1_bwd(plan, n, args, dev) -> dict:
     launch on the source-sorted layout's ``by_src_dst`` over a seeded
     ``[n, 128]`` upstream gradient, against K1's plain version (chunked,
     as ``plain_k1``) within ``GNN_TOL`` * (|plain| + rms), bitwise across
-    two launches; timed beside the plain version, ``index_add_`` on the
-    launch's gathered rows and its bound."""
+    two launches, both on the route table's route; timed beside the plain
+    version, ``index_add_`` on the launch's gathered rows, its bound and
+    its streamed bound."""
     import torch
 
     from repro_torch.kernels.segment_reduce.ops import segment_reduce_multi
+    from repro_torch.kernels.segment_reduce.segment_reduce import route, segment_sum_tiled
 
     tp = plan.source()[1]
     gen = torch.Generator(device=dev).manual_seed(args.seed + 35)
     dout = torch.randn((n, 128), generator=gen, device=dev)
     monoids = (128, 0, 0)
+    name, before = route(128), dict(segment_sum_tiled.launches_by_route)
     got = segment_reduce_multi(tp, dout, monoids)
     check(torch.equal(got, segment_reduce_multi(tp, dout, monoids)),
           "K1's backward launch differs across two launches")
+    check(segment_sum_tiled.launches_by_route == {**before, name: before[name] + 2},
+          f"K1's backward launches took {segment_sum_tiled.launches_by_route}, not {name}")
     plain = plain_k1(tp, dout, monoids)
     rms = plain.pow(2).mean().sqrt()
     diff = (got - plain).abs()
@@ -3161,15 +3359,16 @@ def kernel_k1_bwd(plan, n, args, dev) -> dict:
     ms = time_ms(lambda: segment_reduce_multi(tp, dout, monoids), dev, reps)
     plain_ms = time_ms(lambda: plain_k1(tp, dout, monoids), dev, 2)
     bound, by = k1_bound(tp, dout, got)
+    streamed = k1_streamed_bound(tp, dout, got)[0]
     err = float(diff.max())
     del plain, diff
     torch.cuda.empty_cache()
     lib_ms = k1_index_add_ms(tp, dout, monoids, got, dev, reps)
     torch.cuda.empty_cache()
     return {"shape": "ogb_products layer 2", "rows": int((tp.seg_tiles >= 0).sum()),
-            "columns": 128, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "library_ms": lib_ms, "max_abs_err": err,
-            "share_of_tol": worst}
+            "columns": 128, "route": name, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "streamed_bound_ms": streamed,
+            "library_ms": lib_ms, "max_abs_err": err, "share_of_tol": worst}
 
 
 # ---------------------------------------------------------------------- #
@@ -3220,7 +3419,6 @@ def gwq_phase(args, dev) -> tuple:
 
     from repro_torch.configs.paper_gwq import SHAPES
     from repro_torch.kernels.segment_reduce.ops import segment_sum
-    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
     from repro_torch.launch import steps
 
     t_phase = time.perf_counter()
@@ -3235,11 +3433,12 @@ def gwq_phase(args, dev) -> tuple:
     plans = built.plan(*pieces)
     torch.cuda.synchronize(dev)
     plan_s = time.perf_counter() - t
-    before = segment_sum_tiled.launches
+    before = k1_counts()
     got = built.fn(*pieces, plan=plans)
     torch.cuda.synchronize(dev)
-    launches = segment_sum_tiled.launches - before
-    check(launches == 2, f"gwq made {launches} K1 launches, not 2")
+    launches = k1_since(before)
+    check(launches["segment_sum"] == 2,
+          f"gwq made {launches['segment_sum']} K1 launches, not 2")
     p1g, p1s, p2g, p2s, vals = rows
     ok1, ok2 = p1s >= 0, p2s >= 0
     t_host = np.bincount(p1s[ok1], weights=vals[p1g[ok1]], minlength=dims["nb"])
@@ -3266,7 +3465,7 @@ def gwq_phase(args, dev) -> tuple:
     torch.cuda.empty_cache()
     return {"shape": GWQ_SHAPE, "dims": dict(dims), "world": 1,
             "reduced": GWQ_REDUCED, "rows_s": rows_s, "plan_s": plan_s,
-            "plan_bytes": plan_bytes, "k1_launches": launches,
+            "plan_bytes": plan_bytes, "k1_launches": launches["segment_sum"],
             "check": "bitwise NumPy's int64 sums", "step_ms": step_ms, "passes": passes,
             "seconds": time.perf_counter() - t_phase}, launches
 
@@ -4027,7 +4226,6 @@ def cluster_phase(args, dev):
     from repro_torch.core.windows import KHopWindow
     from repro_torch.graphs.generators import erdos_renyi, with_random_attrs
     from repro_torch.kernels.bitset_expand.bitset_expand import bitset_expand_tiled
-    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
     from repro_torch.obs.audit import graph_crc
     from repro_torch.serve import (
         HealthMonitor,
@@ -4101,7 +4299,7 @@ def cluster_phase(args, dev):
                 rs.router.flush()
             time.sleep(0.01)
 
-    segment_sum_tiled.launches = 0
+    k1_set()
     bitset_expand_tiled.launches = 0
     rs.start(tail_interval_s=0.05)
     th = threading.Thread(target=client, name="cluster-client", daemon=True)
@@ -4160,7 +4358,7 @@ def cluster_phase(args, dev):
     rs.router.flush()
     rs.sync()
     lags.append({name: rep.lag for name, rep in rs.live_replicas.items()})
-    launches = {"segment_sum": segment_sum_tiled.launches,
+    launches = {**k1_counts(),
                 "bitset_expand": bitset_expand_tiled.launches}
     check(launches["segment_sum"] > 0, "the cluster's routed reads launched no K1")
     check(launches["bitset_expand"] > 0, "the cluster's updates launched no K2")
@@ -4367,7 +4565,7 @@ def sharded_stream(sess, args, dev, check_step):
             "full_plan_bytes", "plan_bytes", "plan_rebuilt", "compacted")}})
         return rep
 
-    segment_sum_tiled.launches = 0
+    k1_set()
     bitset_expand_tiled.launches = 0
     res = counted_run()
     check_step("run v0", res, None)
@@ -4409,7 +4607,7 @@ def sharded_stream(sess, args, dev, check_step):
         "plan_bytes_on_rank": state.plan.plan_nbytes(),
         "plan_bytes_whole": state.plan.size_bytes(),
         "rows_per_shard": [state.plan.rows1, state.plan.rows2],
-        "launches": {"segment_sum": segment_sum_tiled.launches,
+        "launches": {**k1_counts(),
                      "bitset_expand": bitset_expand_tiled.launches},
     }
 
@@ -4458,7 +4656,6 @@ def sharded_service(sess, args, dev) -> tuple:
     explicit values, the batches and the numbers."""
     import numpy as np
 
-    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
     from repro_torch.serve import WindowService
 
     rng = np.random.default_rng(args.seed + 14)
@@ -4466,12 +4663,12 @@ def sharded_service(sess, args, dev) -> tuple:
     verts = np.sort(rng.choice(n, SERVICE_POINTS, replace=False))
     vb = rng.integers(0, 100, (3, n)).astype(np.float64)
     svc = WindowService(sess, bucket=4)
-    k1 = segment_sum_tiled.launches
+    k1 = k1_counts()
     t = time.perf_counter()
     tickets = [svc.submit(0, values=vb[i]) for i in range(3)]
     svc.flush()
     flush_ms = (time.perf_counter() - t) * 1e3
-    flush_k1 = segment_sum_tiled.launches - k1
+    flush_k1 = k1_since(k1)["segment_sum"]
     check(svc.batched_launches == 1,
           f"the 3-ticket flush took {svc.batched_launches} batched launches")
     check(flush_k1 == 2, f"the 3-ticket flush made {flush_k1} K1 launches, not 2")
@@ -4495,7 +4692,7 @@ def sharded_service(sess, args, dev) -> tuple:
         "update_ms": update_ms, "point_reads": len(read_ms),
         "point_hits": svc.point_hits, "point_misses": svc.point_misses,
         "point_read_ms_p50": statistics.median(read_ms), "point_read_ms_max": max(read_ms),
-        "k1_launches": segment_sum_tiled.launches - k1,
+        "k1_launches": k1_since(k1),
     }
 
 
@@ -4531,8 +4728,6 @@ def sharded_rank(rank: int, args, world: int, backend: str, dev_type: str, store
             check(r.dtype == w.dtype and r.tobytes() == w.tobytes(),
                   f"rank {rank}, {label}: {a} differs from world 1")
 
-    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
-
     _, stream = sharded_stream(sess, args, dev, check_step)
     (state,) = sess._states.values()
     check(stream["plan_bytes_on_rank"] < stream["plan_bytes_whole"],
@@ -4544,7 +4739,7 @@ def sharded_rank(rank: int, args, world: int, backend: str, dev_type: str, store
               "nan_case": _nan_case(sess, 1, dev),
               "digest": sess.digest()["plan_crc"]}
     # the serving sub-phase: rank 0 leads the service, the others replay
-    k1 = segment_sum_tiled.launches
+    k1 = k1_counts()
     if rank == 0:
         sess.lead()
         try:
@@ -4562,8 +4757,8 @@ def sharded_rank(rank: int, args, world: int, backend: str, dev_type: str, store
         replayed = sess.follow()  # a replay error raises here and fails the rank
         report["service"] = {"replayed_ops": replayed,
                              "follow_s": time.perf_counter() - t}
-    report["service"]["rank_k1_launches"] = segment_sum_tiled.launches - k1
-    report["launches"]["segment_sum"] += report["service"]["rank_k1_launches"]
+    report["service"]["rank_k1_launches"] = k1_since(k1)
+    add_counts(report["launches"], report["service"]["rank_k1_launches"])
     report["service_digest"] = sess.digest()["plan_crc"]
     with open(f"{out}.{rank}.json", "w") as f:
         json.dump(report, f)
@@ -4620,7 +4815,6 @@ def sharded_phase(args, dev):
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.kernels.bitset_expand.bitset_expand import bitset_expand_tiled
-    from repro_torch.kernels.segment_reduce.segment_reduce import segment_sum_tiled
 
     t_phase = time.perf_counter()
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
@@ -4652,7 +4846,7 @@ def sharded_phase(args, dev):
             def check_step(label, res, batch):
                 # the single-host session is the comparison: its launches
                 # are not the path's
-                k1, k2 = segment_sum_tiled.launches, bitset_expand_tiled.launches
+                k1, k2 = k1_counts(), bitset_expand_tiled.launches
                 if label == "run_many":
                     want = host.run_many(np.random.default_rng(args.seed + 12).integers(
                         0, 100, (SHARDED_B, g.n)).astype(np.float64))
@@ -4660,7 +4854,8 @@ def sharded_phase(args, dev):
                     if batch is not None:
                         host.update(batch)
                     want = host.run()
-                segment_sum_tiled.launches, bitset_expand_tiled.launches = k1, k2
+                k1_set(k1)
+                bitset_expand_tiled.launches = k2
                 for a, x, y in zip(AGGS, res, want):
                     check(x.dtype == y.dtype and x.tobytes() == y.tobytes(),
                           f"world 1 {label}: {a} differs from single-host")
@@ -4690,16 +4885,17 @@ def sharded_phase(args, dev):
                       digest=sess.digest()["plan_crc"],
                       host_plan_bytes=hstate.plan.plan_nbytes())
             served, vb, sverts, sbatches, w1["service"] = sharded_service(sess, args, dev)
-            w1["launches"]["segment_sum"] += w1["service"]["k1_launches"]
+            add_counts(w1["launches"], w1["service"]["k1_launches"])
             # every ticket bitwise the single-host session on the same stream
             # (its launches are the comparison's, not the path's)
-            k1, k2 = segment_sum_tiled.launches, bitset_expand_tiled.launches
+            k1, k2 = k1_counts(), bitset_expand_tiled.launches
             want = [host.run(vb[i])[0] for i in range(3)]
             for batch in sbatches:
                 host.update(batch)
                 res = host.run()
                 want += [r[v] for r in res for v in sverts]
-            segment_sum_tiled.launches, bitset_expand_tiled.launches = k1, k2
+            k1_set(k1)
+            bitset_expand_tiled.launches = k2
             for i, (x, y) in enumerate(zip(served, want)):
                 check(x.dtype == y.dtype and x.tobytes() == y.tobytes(),
                       f"world 1 service ticket {i} differs from single-host")
@@ -4755,6 +4951,7 @@ def run(args, dev) -> None:
 
     from repro_torch.graphs.generators import erdos_renyi, with_random_attrs
     from repro_torch.kernels import build
+    from repro_torch.kernels.segment_reduce.segment_reduce import NARROW_MAX_C
 
     t_run = time.perf_counter()
     rng = np.random.default_rng(args.seed)
@@ -4820,7 +5017,8 @@ def run(args, dev) -> None:
     ea = explain_analyze(sess, state, dev, ("host_prep", "pass1_reduce", "pass2_reduce",
                                             "finalize"), 2, 0)
     emit({"phase": "explain_analyze", "window": "KHop(2)", **ea})
-    launches["segment_sum"] += ea["launches"]["segment_sum"]
+    for key in K1_KEYS:
+        launches[key] += ea["launches"][key]
     # the GNN feature operator on this session's plan; serve_gnn reports it
     khop = khop_features(state, args, dev)
     del sess, state, plan
@@ -4839,7 +5037,12 @@ def run(args, dev) -> None:
     tea = explain_analyze(tsess, tstate, dev, ("host_prep", "wd_reduce", "inherit",
                                                "finalize"), 1, 1)
     emit({"phase": "explain_analyze", "window": "TopologicalWindow()", **tea})
-    launches["segment_sum"] += tmain["launches"]["segment_sum"] + tea["launches"]["segment_sum"]
+    for key in K1_KEYS:
+        launches[key] += tmain["launches"][key] + tea["launches"][key]
+    # the window path's K1 launches are at C <= 4 (run), 24 / 32 (run_many)
+    # and 3 / 24 (wd_plan): on the narrow route, by its counter
+    check(launches["segment_sum_wide"] == 0,
+          f"the window path made {launches['segment_sum_wide']} wide K1 launches")
     launches["inherit_scan"] = (tmain["launches"]["inherit_scan"]
                                 + tea["launches"]["inherit_scan"])
     check(launches["inherit_scan"] > 0, "the topological path launched no scan")
@@ -4865,12 +5068,14 @@ def run(args, dev) -> None:
     emit({"phase": "serve_gnn", **gnn_out})
     emit({"phase": "train_gnn", **gnn_train})
     emit({"phase": "kernel:segment_sum_bwd", "check": "ok", **k1_bwd})
-    launches["segment_sum"] += gnn_k1
-    launches["segment_sum_bwd"] = gnn_k1_bwd
-    check(gnn_k1_bwd > 0, "the GNN training path launched no K1 backward")
+    emit({"phase": "kernel:segment_sum_routes", "check": "ok",
+          "narrow_max_c": NARROW_MAX_C, "ptxas": k1_ptxas_by_route(),
+          "plans": _K1_ROUTES})
+    add_counts(add_counts(launches, gnn_k1), gnn_k1_bwd)
+    check(launches["segment_sum_bwd"] > 0, "the GNN training path launched no K1 backward")
     gwq, gwq_k1 = gwq_phase(args, dev)
     emit({"phase": "gwq", **gwq})
-    launches["segment_sum"] += gwq_k1
+    add_counts(launches, gwq_k1)
     # the training path: its backward kernels checked first, then the
     # trainers, the card's memory freed on either side
     torch.cuda.empty_cache()
@@ -4909,6 +5114,12 @@ def run(args, dev) -> None:
     emit({"phase": "kernel:bitset_expand", "check": "ok", **k2_shapes})
     k2 = k2_shapes["per_shape"]["a_main_path"]
     k3_row, k4_row = k3["serve_prefill"], k4["serve_bulk"]
+    # every K1 launch of the run counted once, on one route
+    for key in ("segment_sum", "segment_sum_bwd"):
+        check(launches[f"{key}_narrow"] + launches[f"{key}_wide"] == launches[key],
+              f"{key}'s launches by route do not add up to {launches[key]}: "
+              f"{launches[f'{key}_narrow']} narrow, {launches[f'{key}_wide']} wide")
+    wide = _K1_ROUTES["ogb_products_sage_by_src"][128]
 
     rows = [
         {"name": "segment_sum", "route": "cuda",
@@ -4923,6 +5134,16 @@ def run(args, dev) -> None:
                           "max_abs_err")},
          "wd_plan_form": {key: k1_wd["run"][key] for key in
                           ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")},
+         "routes": {"narrow": f"C <= {NARROW_MAX_C}: segment_reduce_kernel",
+                    "wide": (f"C > {NARROW_MAX_C}: segment_reduce_kernel_wide, then "
+                             "segment_reduce_wide_fixup")},
+         "launches_by_route": {"narrow": launches["segment_sum_narrow"],
+                               "wide": launches["segment_sum_wide"]},
+         "wide_form": {"shape": "ogb_products SAGE by_src, C = 128",
+                       "ms": wide["wide"]["ms"], "narrow_ms": wide["narrow"]["ms"],
+                       "max_abs_err": wide["wide"]["max_abs_err"],
+                       **{key: wide[key] for key in ("bound_ms", "bound_by",
+                                                     "streamed_bound_ms", "library_ms")}},
          "check": "ok"},
         {"name": "segment_sum_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/segment_sum.cu",
@@ -4930,8 +5151,11 @@ def run(args, dev) -> None:
                       "kernel has no backward; the reference differentiates "
                       "jax.ops.segment_sum): K1 launched on the source-sorted layout"),
          "launches": launches["segment_sum_bwd"], "max_abs_err": k1_bwd["max_abs_err"],
+         "launches_by_route": {"narrow": launches["segment_sum_bwd_narrow"],
+                               "wide": launches["segment_sum_bwd_wide"]},
+         "k1_route": k1_bwd["route"],
          **{key: k1_bwd[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                         "library_ms", "shape")},
+                                         "streamed_bound_ms", "library_ms", "shape")},
          "check": "ok"},
         {"name": "bitset_expand", "route": "cuda",
          "source": "src/repro_torch/csrc/bitset_expand.cu",

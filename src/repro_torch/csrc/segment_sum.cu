@@ -20,11 +20,20 @@
 // group the valid rows come first, sorted by segment id, and pad rows carry
 // seg -1.  So a segment's rows are one contiguous run of plan rows.
 //
-// What bounds it on an H100: bytes.  Each plan row is one combine a column;
-// the work is reading the plan's index arrays (8 bytes a valid row) at the
-// memory rate.  The value rows are a few MB at most and stay in L2.
+// Two routes, both reached through segment_reduce_f32; the wrapper's route
+// table (`route` in kernels/segment_reduce/segment_reduce.py) picks one by
+// the column count C and passes `slice_rows` > 0 for the wide one.
 //
-// The design:
+// What bounds it on an H100: bytes.  Each plan row is one combine a column;
+// the work is reading the plan's index arrays (8 bytes a valid row) and the
+// gathered value rows (4 C bytes each).  For the window path's narrow rows
+// (C <= 4, a few MB of values) the rows stay in L2 and the index arrays set
+// the time.  For the GNN's wide rows (C = 100-1,433; ogbn-products' values
+// are 1.0-1.25 GB, 20-25 times the L2) every gathered row streams from HBM,
+// and the time is that of moving 4 C bytes a valid plan row.
+//
+// The narrow route (C at or below the table's threshold;
+// `segment_reduce_kernel`):
 // - Work is split over input rows, not output tiles, and over warps, not
 //   blocks: each warp owns a range of consecutive plan rows and walks it in
 //   windows of 128 rows, four neighbouring rows a lane, so segment ids and
@@ -54,6 +63,45 @@
 //   plan's row count), never from scheduling or from the number of columns,
 //   so two launches are bitwise equal and a column's result does not depend
 //   on which columns ride along.
+// At wide rows this design loses: every 4-column chunk repeats the whole
+// segmented scan, a warp load touches 128 different rows, and a long run is
+// walked by one warp.
+//
+// The wide route (C above the threshold; `segment_reduce_kernel_wide`, then
+// `segment_reduce_wide_fixup`):
+// - Lanes run across columns.  A work item is a slice of `slice_rows`
+//   consecutive plan rows (a power of two from 32 to 1,024 that the wrapper
+//   picks from the plan's row count alone) times a tile of 128 columns, and
+//   one warp does it: lane l holds columns 4l..4l+3 of the tile (one 16-byte
+//   load a row where C % 4 == 0 and the values are 16-byte aligned) or
+//   l, l+32, l+64, l+96 (four 4-byte loads, each coalesced over the warp).
+//   Each gathered row's read is coalesced, and a row wider than 128 columns
+//   is covered by ceil(C / 128) work items over the same plan rows.
+// - The warp walks its slice in row order; the running combine of the open
+//   run stays in registers, and a segment-id change writes it.  No scan over
+//   rows: a segment's rows are one contiguous run.
+// - Rows in flight: ids come 128 rows at a time in 16-byte loads (four a
+//   lane), and the warp issues the loads of 8 gathered rows (8 x 512 bytes
+//   at a full tile) before it combines the first of them.  At 86-94
+//   registers two blocks of 8 warps fit an SM: up to 64 KB in flight an
+//   SM, against the ~18 KB that cover HBM's latency (3.35 TB/s x ~0.7 us /
+//   132 SMs).  Registers hold them, so no shared-memory ring is needed.
+// - Long runs are split by position.  A run wholly inside a slice is written
+//   directly.  A run cut by slice edges leaves one partial a slice in
+//   scratch the wrapper allocates (`head[k]`, slice k's first run when it
+//   began before the slice; `tail[k]`, its last run when it goes on past
+//   it), and the second launch combines them in slice order: the slice
+//   holding the run's last row owns it, walks back over the slices the run
+//   covers whole, and writes tail[a] + head[a+1] + ... + head[b].  So a
+//   high-degree node spreads over many warps, and the order of its combines
+//   follows from the plan and `slice_rows` alone.
+// - Pad rows are skipped as in the narrow route; every output cell is
+//   written by the kernel as there (gaps after a run by the slice holding the
+//   run's last row, a group's leading gap by the slice holding its first
+//   run's first row, an empty group by the slice holding its first input
+//   tile's first row), each over the work item's 128 columns.
+// - No atomics on values; two launches are bitwise equal, and a column's
+//   result does not depend on which columns ride along.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -414,15 +462,261 @@ int launch_cc(const Launch& l, cudaStream_t stream) {
   return l.m.n_sum == l.m.C ? launch<CC, SUM>(l, stream) : launch<CC, -1>(l, stream);
 }
 
+
+// ------------------------------------------------------------------------
+// The wide route
+// ------------------------------------------------------------------------
+
+constexpr int WNT = 256;               // threads per block: eight independent warps
+constexpr int WWARPS = WNT / 32;
+constexpr int TILE = 128;              // columns per work item: four a lane
+constexpr int INFLIGHT = 8;            // gathered rows a warp loads before combining
+
+struct Wide {
+  const float* values;
+  const int *gather, *seg, *m2out;
+  float* out;
+  float *head, *tail;  // [n_slices][C] each: the partials of runs cut by slice edges
+  long long rows, n_slices;
+  Div tm, ts;
+  int slice_rows, tiles;
+  Cols m;
+};
+
+// lane's j-th column of the tile starting at c0
+template <bool VEC>
+__device__ __forceinline__ int col_of(int c0, int lane, int j) {
+  return VEC ? c0 + 4 * lane + j : c0 + lane + 32 * j;
+}
+
+// the lane's (up to) four columns of one row; VEC: C % 4 == 0 and the row
+// 16-byte aligned, so a lane's four columns are all in the row or all past it
+template <bool VEC>
+__device__ __forceinline__ void row_load(const float* row, int c0, int lane, int C,
+                                         float (&v)[4]) {
+  if constexpr (VEC) {
+    const int c = c0 + 4 * lane;
+    if (c < C) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(row + c));
+      v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + lane + 32 * j;
+      if (c < C) v[j] = __ldg(row + c);
+    }
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void row_store(float* row, int c0, int lane, int C,
+                                          const float (&v)[4]) {
+  if constexpr (VEC) {
+    const int c = c0 + 4 * lane;
+    if (c < C) *reinterpret_cast<float4*>(row + c) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + lane + 32 * j;
+      if (c < C) row[c] = v[j];
+    }
+  }
+}
+
+// identities into segments [a, b) of the work item's columns
+template <bool VEC>
+__device__ __forceinline__ void tile_fill(float* out, long long a, long long b, int c0,
+                                          int lane, int C, const float (&id)[4]) {
+  for (long long s = a; s < b; ++s) row_store<VEC>(out + s * C, c0, lane, C, id);
+}
+
+template <int MONO>
+__device__ __forceinline__ void combine4(const int (&code)[4], float (&acc)[4],
+                                         const float (&v)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) acc[j] = combine(MONO >= 0 ? MONO : code[j], acc[j], v[j]);
+}
+
+// One warp per work item (slice k, column tile); runs cut by the slice's
+// edges go to head[k] / tail[k], the rest straight to out.
+template <bool VEC, int MONO>
+__global__ void __launch_bounds__(WNT, 2) segment_reduce_kernel_wide(const Wide w) {
+  const int lane = threadIdx.x & 31;
+  const long long item = (long long)blockIdx.x * WWARPS + (threadIdx.x >> 5);
+  if (item >= w.n_slices * w.tiles) return;
+  const long long k = item / w.tiles;
+  const int c0 = (int)(item % w.tiles) * TILE;
+  const int C = w.m.C;
+  int code[4];
+  float id[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    code[j] = MONO >= 0 ? MONO : code_of(col_of<VEC>(c0, lane, j), w.m);
+    id[j] = identity(code[j]);
+  }
+  const long long r0 = k * w.slice_rows;
+  const long long end = min(r0 + w.slice_rows, w.rows);
+
+  // groups with no valid rows whose first input tile starts in this slice
+  for (long long r = (long long)w.tm(r0 + w.tm.d - 1) * w.tm.d; r < end; r += w.tm.d) {
+    const unsigned t = w.tm(r);
+    if (__ldg(w.seg + r) >= 0) continue;
+    const int o = __ldg(w.m2out + t);
+    if (t == 0 || __ldg(w.m2out + t - 1) != o)
+      tile_fill<VEC>(w.out, (long long)o * w.ts.d, (long long)(o + 1) * w.ts.d, c0, lane, C,
+                     id);
+  }
+
+  int prev = r0 > 0 ? __ldg(w.seg + r0 - 1) : -1;  // raw id of the row before
+  int cur = -1;       // the open run's segment
+  bool cut = false;   // the open run began before this slice
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  // the open run ends before a row of segment `nxt` (-1: pad or the plan's
+  // end): its value, then the identities up to the next run of its group
+  auto finish = [&](int nxt) {
+    row_store<VEC>(cut ? w.head + k * C : w.out + (long long)cur * C, c0, lane, C, acc);
+    const unsigned g = w.ts(cur);
+    const long long b = (nxt >= 0 && w.ts(nxt) == g) ? nxt : (long long)(g + 1) * w.ts.d;
+    tile_fill<VEC>(w.out, (long long)cur + 1, b, c0, lane, C, id);
+  };
+
+  for (long long r = r0; r < end;) {
+    const int nb = (int)min((long long)WR, end - r);  // a multiple of 4
+    int s[IT], gi[IT];
+    load_ids(w.seg, r + lane * IT, end, -1, s);
+#pragma unroll
+    for (int i = 0; i < IT; ++i) gi[i] = 0;
+    if (w.gather) load_ids(w.gather, r + lane * IT, end, 0, gi);
+    for (int q = 0; q < nb; q += INFLIGHT) {
+      int sv[INFLIGHT], gv[INFLIGHT];
+      float v[INFLIGHT][4];
+#pragma unroll
+      for (int u = 0; u < INFLIGHT; ++u) {
+        sv[u] = __shfl_sync(FULL, s[u % IT], (q + u) / IT);
+        gv[u] = __shfl_sync(FULL, gi[u % IT], (q + u) / IT);
+      }
+      // every load of the group issued before the first combine
+#pragma unroll
+      for (int u = 0; u < INFLIGHT; ++u) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[u][j] = 0.0f;
+        if (sv[u] >= 0) {
+          const long long row = w.gather ? (long long)gv[u] : r + q + u;
+          row_load<VEC>(w.values + row * C, c0, lane, C, v[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < INFLIGHT; ++u) {
+        const int sid = sv[u];
+        if (sid >= 0 && sid == cur) {
+          combine4<MONO>(code, acc, v[u]);
+        } else if (sid >= 0) {
+          if (cur >= 0) finish(sid);
+          // a run starts here, or (at the slice's first row) goes on from
+          // the slice before
+          cut = sid == prev;
+          if (!cut && (prev < 0 || w.ts(prev) != w.ts(sid)))  // its group's first run
+            tile_fill<VEC>(w.out, (long long)w.ts(sid) * w.ts.d, sid, c0, lane, C, id);
+          cur = sid;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[j] = v[u][j];
+        }
+        prev = sid;
+      }
+    }
+    // after a pad row the rest of its input tile is pad
+    const int last = __shfl_sync(FULL, s[IT - 1], nb / IT - 1);
+    long long rn = r + nb;
+    if (last < 0) rn = min((long long)w.tm(rn + w.tm.d - 1) * w.tm.d, end);
+    r = rn;
+  }
+  if (cur >= 0) {
+    const int nxt = end < w.rows ? __ldg(w.seg + end) : -1;
+    if (nxt == cur)  // the run goes on into the next slice
+      row_store<VEC>((cut ? w.head : w.tail) + k * C, c0, lane, C, acc);
+    else
+      finish(nxt);
+  }
+}
+
+// The runs cut by slice edges, one warp per work item: the slice holding a
+// run's last row combines the run's partials in slice order.
+template <bool VEC, int MONO>
+__global__ void __launch_bounds__(WNT) segment_reduce_wide_fixup(const Wide w) {
+  const int lane = threadIdx.x & 31;
+  const long long item = (long long)blockIdx.x * WWARPS + (threadIdx.x >> 5);
+  if (item >= w.n_slices * w.tiles) return;
+  const long long k = item / w.tiles;
+  const int c0 = (int)(item % w.tiles) * TILE;
+  const int C = w.m.C;
+  const long long L = w.slice_rows, r = k * L;
+  if (k == 0) return;
+  const int run = __ldg(w.seg + r);
+  if (run < 0 || __ldg(w.seg + r - 1) != run) return;     // no run cut at this slice's start
+  if (r + L < w.rows && __ldg(w.seg + r + L) == run) return;  // a later slice owns it
+  // a: the slice where the run starts (the slices between hold it whole)
+  long long a = k - 1;
+  for (;;) {
+    const long long p = a - lane;
+    const bool whole = p > 0 && __ldg(w.seg + p * L) == run && __ldg(w.seg + p * L - 1) == run;
+    const unsigned stop = __ballot_sync(FULL, !whole);
+    if (stop) {
+      a -= __ffs(stop) - 1;
+      break;
+    }
+    a -= 32;
+  }
+  int code[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) code[j] = MONO >= 0 ? MONO : code_of(col_of<VEC>(c0, lane, j), w.m);
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  row_load<VEC>(w.tail + a * C, c0, lane, C, acc);
+#pragma unroll 4
+  for (long long p = a + 1; p <= k; ++p) {
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    row_load<VEC>(w.head + p * C, c0, lane, C, v);
+    combine4<MONO>(code, acc, v);
+  }
+  row_store<VEC>(w.out + (long long)run * C, c0, lane, C, acc);
+}
+
+template <bool VEC, int MONO>
+int launch_wide(const Wide& w, cudaStream_t stream) {
+  const long long blocks = (w.n_slices * w.tiles + WWARPS - 1) / WWARPS;
+  segment_reduce_kernel_wide<VEC, MONO><<<(unsigned)blocks, WNT, 0, stream>>>(w);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  segment_reduce_wide_fixup<VEC, MONO><<<(unsigned)blocks, WNT, 0, stream>>>(w);
+  return (int)cudaGetLastError();
+}
+
+// all-sum columns take the instance without the min/max code
+template <bool VEC>
+int launch_wide_vec(const Wide& w, cudaStream_t stream) {
+  return w.m.n_sum == w.m.C ? launch_wide<VEC, SUM>(w, stream)
+                            : launch_wide<VEC, -1>(w, stream);
+}
+
 }  // namespace
 
+// slice_rows == 0: the narrow route; slice_rows > 0 (a multiple of 4): the
+// wide route, with `scratch` [2][ceil(rows / slice_rows)][channels] floats
 extern "C" int segment_reduce_f32(const float* values, const int* gather, const int* seg,
                                   const int* m2out, long long rows, int tm, int ts,
-                                  int channels, int n_sum, int n_min, float* out,
-                                  void* stream) {
-  const Launch l{values, gather, seg, m2out, out, rows, div_by(tm), div_by(ts),
-                 {channels, n_sum, n_min}};
+                                  int channels, int n_sum, int n_min, int slice_rows,
+                                  float* scratch, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const Cols m{channels, n_sum, n_min};
+  if (slice_rows > 0) {
+    const long long n_slices = (rows + slice_rows - 1) / slice_rows;
+    const Wide w{values, gather, seg, m2out, out, scratch, scratch + n_slices * channels,
+                 rows, n_slices, div_by(tm), div_by(ts), slice_rows,
+                 (channels + TILE - 1) / TILE, m};
+    const bool vec = channels % 4 == 0 && (reinterpret_cast<uintptr_t>(values) & 15) == 0;
+    return vec ? launch_wide_vec<true>(w, s) : launch_wide_vec<false>(w, s);
+  }
+  const Launch l{values, gather, seg, m2out, out, rows, div_by(tm), div_by(ts), m};
   switch (channels) {
     case 1: return launch_cc<1>(l, s);
     case 2: return launch_cc<2>(l, s);

@@ -1,13 +1,15 @@
 """Kernel K1: fused gather + tiled segment reduction over a tile plan, with
 a monoid (sum, min or max) per column.
 
-The CUDA kernel is ``csrc/segment_sum.cu`` (its opening note says what it
-replaces and how it is designed).  :func:`segment_reduce_tiled` launches it
-for CUDA tensors and takes :func:`segment_reduce_plain` — ``index_add_`` for
-the sum columns, ``scatter_reduce`` seeded with the identity for min and
-max, over the same plan layout — only for tensors on the CPU.  The plain
-version is also the kernel's oracle on the card.  :func:`segment_sum_tiled`
-is the all-sum case.
+The CUDA kernels are in ``csrc/segment_sum.cu`` (its opening note says what
+they replace and how they are designed): a narrow route for the window
+path's few columns and a wide route, lanes across columns, for the GNN's
+rows; :func:`route` picks one by the column count.
+:func:`segment_reduce_tiled` launches it for CUDA tensors and takes
+:func:`segment_reduce_plain` — ``index_add_`` for the sum columns,
+``scatter_reduce`` seeded with the identity for min and max, over the same
+plan layout — only for tensors on the CPU.  The plain version is also the
+kernels' oracle on the card.  :func:`segment_sum_tiled` is the all-sum case.
 """
 
 from __future__ import annotations
@@ -23,15 +25,62 @@ from repro_torch.kernels import build as _build
 DEFAULT_TM = 512  # rows per input tile
 DEFAULT_TS = 512  # segment ids per output tile
 
+#: the route table: columns at or below NARROW_MAX_C take the narrow route
+#: (one warp a range of plan rows, a segmented scan per 4-column chunk), the
+#: rest the wide route (lanes across a 128-column tile of each gathered row).
+#: The narrow route serves the window path's passes (C = 1-4), ``run_many``
+#: (C = 24 / 32), ``wd_plan`` (3 / 24) and ``khop_aggregate`` (32).  The
+#: threshold is where the card turns (a sweep by chip_smoke.py's
+#: ``kernel:segment_sum_routes``, which now keeps Cora's C = 32-1,433 and
+#: ogbn-products' 100 and 128 of it; NVIDIA H100 80GB HBM3, 700.00 W; ms a
+#: launch, narrow / wide, CUDA events around single launches):
+#:   k-hop pass 1, 7.8 M plan rows: C = 4 0.135 / 0.380, 24 0.250 / 0.384,
+#:     32 0.332 / 0.387, 64 0.648 / 0.391;
+#:   ogbn-products' SAGE plan, 63.4 M rows: 4 1.09 / 4.46, 24 4.65 / 5.05,
+#:     32 5.22 / 5.01, 64 12.56 / 6.33, 100 23.41 / 10.46, 128 29.53 / 11.32;
+#:   Cora's GCN plan, 11,264 rows (the host's enqueue sets these below
+#:     1,433): 4 0.105 / 0.155, 24 0.155 / 0.101, 32 0.100 / 0.102,
+#:     64 0.180 / 0.192, 100 0.099 / 0.102, 128 0.157 / 0.145,
+#:     1,433 1.82 / 0.162.
+#: So the narrow route keeps the window path's widths (it wins there up to
+#: C = 32) and the wide route takes C = 64 and up, where it wins wherever
+#: the card, not the host, sets the time.
+NARROW_MAX_C = 32
+ROUTES = ("narrow", "wide")
+#: the narrow route keeps a ``[C]`` float carry per warp, four warps a block,
+#: in shared memory; the wide route's registers and shared memory do not
+#: grow with C (it has no column limit)
+NARROW_SMEM_BYTES = 200 * 1024
+#: the wide route's slice of plan rows a work item: a power of two from
+#: WIDE_SLICE_MIN to WIDE_SLICE_MAX, the least that keeps the plan's slices
+#: to WIDE_SLICES or fewer
+WIDE_SLICE_MIN, WIDE_SLICE_MAX, WIDE_SLICES = 32, 1024, 4096
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+def route(channels: int) -> str:
+    """The kernel a CUDA launch over ``channels`` columns takes: ``"narrow"``
+    (a warp a range of plan rows) or ``"wide"`` (lanes across columns)."""
+    return "narrow" if channels <= NARROW_MAX_C else "wide"
+
+
+def wide_slice_rows(rows: int) -> int:
+    """Plan rows a wide-route work item covers, from the plan's row count
+    alone (so the order of a segment's combines follows from the plan)."""
+    n = WIDE_SLICE_MIN
+    while n < WIDE_SLICE_MAX and n * WIDE_SLICES < rows:
+        n *= 2
+    return n
 
 
 def _lib():
     lib = _build.load("segment_sum")
     fn = lib.segment_reduce_f32
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _P, _P]
+        fn.argtypes = [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _I, _P, _P,
+                       _P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -88,7 +137,9 @@ def segment_reduce_tiled(values: torch.Tensor, gather: Optional[torch.Tensor],
     autograd would record raise on either device: the kernel's result
     carries no gradient, and the routes that train (the GNN message passing
     of ``models/gnn.py``) call it inside a ``torch.autograd.Function``.
-    Every launch adds one to ``segment_sum_tiled.launches``."""
+    A CUDA launch takes :func:`route`'s kernel for ``C``.  Every launch
+    adds one to ``segment_sum_tiled.launches`` and to its kernel's
+    ``segment_sum_tiled.launches_by_route``."""
     nm = seg_tiles.shape[0]
     dev = values.device
     _build.check_tensor(values, torch.float32, 2, "values")
@@ -118,8 +169,9 @@ def segment_reduce_tiled(values: torch.Tensor, gather: Optional[torch.Tensor],
     if nm == 0 or tm % 4:
         raise ValueError(f"the kernel needs at least one input tile and tm % 4 == 0 "
                          f"(nm={nm}, tm={tm})")
-    if channels * 16 > 200 * 1024:  # each of a block's 4 warps keeps a [C] carry
-        raise ValueError(f"{channels} columns need more shared memory than a block has")
+    if route(channels) == "narrow" and channels * 16 > NARROW_SMEM_BYTES:
+        raise ValueError(f"{channels} columns need more shared memory than a block of "
+                         "the narrow route has")
     if channels == 0:
         return torch.empty((num_out_tiles * ts, 0), dtype=torch.float32, device=dev)
     return torch.ops.repro_torch.segment_reduce_tiled(
@@ -131,20 +183,30 @@ def segment_reduce_tiled(values: torch.Tensor, gather: Optional[torch.Tensor],
 def _launch(values: torch.Tensor, gather: Optional[torch.Tensor], seg_tiles: torch.Tensor,
             m2out: torch.Tensor, tm: int, ts: int, n_sum: int, n_min: int,
             num_out_tiles: int) -> torch.Tensor:
-    """One launch of the kernel (checked inputs)."""
+    """One launch on :func:`route`'s kernel (checked inputs); the wide
+    route's scratch, a head and a tail partial of C floats a slice, is
+    allocated here."""
     for t in (seg_tiles, gather):
         if t is not None and t.data_ptr() % 16:
             raise ValueError("plan index arrays must be 16-byte aligned")
     nm, channels, dev = seg_tiles.shape[0], values.shape[1], values.device
+    rows = nm * tm
     out = torch.empty((num_out_tiles * ts, channels), dtype=torch.float32, device=dev)
+    kernel = route(channels)
+    wide = kernel == "wide"
+    slice_rows = wide_slice_rows(rows) if wide else 0
+    scratch = (torch.empty(2 * -(-rows // slice_rows) * channels, dtype=torch.float32,
+                           device=dev) if wide else None)
     fn = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(values.data_ptr(), None if gather is None else gather.data_ptr(),
-                 seg_tiles.data_ptr(), m2out.data_ptr(), nm * tm, tm, ts, channels,
-                 n_sum, n_min, out.data_ptr(), stream)
-    _build.check(err, "segment_reduce_f32")
+                 seg_tiles.data_ptr(), m2out.data_ptr(), rows, tm, ts, channels,
+                 n_sum, n_min, slice_rows, scratch.data_ptr() if wide else None,
+                 out.data_ptr(), stream)
+    _build.check(err, f"segment_reduce_f32 ({kernel})")
     segment_sum_tiled.launches += 1
+    segment_sum_tiled.launches_by_route[kernel] += 1
     return out
 
 
@@ -172,6 +234,7 @@ def segment_sum_tiled(values: torch.Tensor, gather: Optional[torch.Tensor],
                                 num_out_tiles=num_out_tiles, tm=tm, ts=ts)
 
 
-#: K1 launches so far, whatever the monoids (a plain count; callers may
-#: reset it to 0)
+#: K1 launches so far, whatever the monoids, in all and by route (plain
+#: counts; callers may reset them to 0)
 segment_sum_tiled.launches = 0
+segment_sum_tiled.launches_by_route = {name: 0 for name in ROUTES}

@@ -71,18 +71,35 @@ def _k1_check(got, plain, mass, n_sum, exact):
         assert torch.equal(got[:, n_sum:], plain[:, n_sum:])
 
 
-@pytest.mark.parametrize("kind,monoids", [
-    ("mixed", (1, 1, 1)), ("mixed", (0, 1, 0)), ("mixed", (0, 0, 2)),
-    ("headroom", (2, 1, 1)), ("long_run", (2, 1, 1)), ("long_run", (0, 0, 1)),
-    ("empty", (1, 1, 1)), ("mixed", (64, 33, 33)), ("large", (1, 0, 0)),
-    ("large", (1, 1, 1)),
-])
-def test_segment_reduce_kernel_matches_plain(cuda, kind, monoids):
+# (kind, monoids, route): the narrow route's cases (C = 130 there with the
+# threshold raised), then the wide route at C = 33, 100, 128 and
+# 1,433, the route table's choice for each
+K1_CUDA_CASES = [
+    ("mixed", (1, 1, 1), "narrow"), ("mixed", (0, 1, 0), "narrow"),
+    ("mixed", (0, 0, 2), "narrow"), ("headroom", (2, 1, 1), "narrow"),
+    ("long_run", (2, 1, 1), "narrow"), ("long_run", (0, 0, 1), "narrow"),
+    ("empty", (1, 1, 1), "narrow"), ("mixed", (64, 33, 33), "narrow"),
+    ("large", (1, 0, 0), "narrow"), ("large", (1, 1, 1), "narrow"),
+    ("mixed", (33, 0, 0), "wide"), ("headroom", (100, 0, 0), "wide"),
+    ("mixed", (128, 0, 0), "wide"), ("long_run", (128, 0, 0), "wide"),
+    ("long_run", (64, 33, 33), "wide"), ("empty", (64, 33, 33), "wide"),
+    ("empty", (1433, 0, 0), "wide"), ("mixed", (1433, 0, 0), "wide"),
+    ("headroom", (11, 11, 11), "wide"), ("large", (100, 0, 0), "wide"),
+]
+
+
+@pytest.mark.parametrize("kind,monoids,kernel", K1_CUDA_CASES)
+def test_segment_reduce_kernel_matches_plain(cuda, monkeypatch, kind, monoids, kernel):
+    from _k1_wide_model import wide_model
+
     from repro_torch.kernels.segment_reduce import ops
+    from repro_torch.kernels.segment_reduce import segment_reduce as k1mod
     from repro_torch.kernels.segment_reduce.segment_reduce import (
+        route,
         segment_reduce_plain,
         segment_reduce_tiled,
         segment_sum_tiled,
+        wide_slice_rows,
     )
 
     rng = np.random.default_rng(sum(monoids) + len(kind))
@@ -92,13 +109,19 @@ def test_segment_reduce_kernel_matches_plain(cuda, kind, monoids):
     args = (plan.gather_padded, plan.seg_tiles, plan.m2out)
     kw = dict(num_out_tiles=plan.num_out_tiles, tm=plan.tm, ts=plan.ts)
     c, n = sum(monoids), int(gidx.max()) + 1
+    # the route table's choice, or the narrow route past its threshold
+    assert kernel == "narrow" or route(c) == "wide"
+    if route(c) != kernel:
+        monkeypatch.setattr(k1mod, "NARROW_MAX_C", c)
     for vals in (rng.integers(0, 100, (n, c)), rng.normal(size=(n, c))):
         v = torch.from_numpy(vals.astype(np.float32)).to(cuda)
-        before = segment_sum_tiled.launches
+        before, by_route = segment_sum_tiled.launches, dict(segment_sum_tiled.launches_by_route)
         got = segment_reduce_tiled(v, *args, monoids=monoids, **kw)
         again = segment_reduce_tiled(v, *args, monoids=monoids, **kw)
         torch.cuda.synchronize()
         assert segment_sum_tiled.launches == before + 2
+        assert segment_sum_tiled.launches_by_route == {**by_route,
+                                                       kernel: by_route[kernel] + 2}
         assert torch.equal(got, again)  # deterministic: no atomics
         plain = segment_reduce_plain(v, plan.gather_padded, plan.seg_tiles,
                                      monoids=monoids, num_out_tiles=plan.num_out_tiles,
@@ -112,6 +135,23 @@ def test_segment_reduce_kernel_matches_plain(cuda, kind, monoids):
         ident = torch.tensor([0.0] * monoids[0] + [float("inf")] * monoids[1]
                              + [float("-inf")] * monoids[2], device=cuda)
         assert torch.equal(got[empty], ident.expand(int(empty.sum()), c))
+        if kernel == "narrow":
+            continue
+        # the wide route: bitwise its NumPy model (float32 in the kernels'
+        # order), the pre-gathered form and 4-byte lanes (values not 16-byte
+        # aligned) the same function bit for bit
+        if kind != "large":
+            model, _ = wide_model(vals.astype(np.float32), plan.gather_padded.cpu().numpy(),
+                                  plan.seg_tiles.cpu().numpy(), plan.m2out.cpu().numpy(),
+                                  monoids, plan.num_out_tiles, plan.tm, plan.ts,
+                                  wide_slice_rows(plan.seg_tiles.numel()))
+            assert torch.equal(got.cpu(), torch.from_numpy(model))
+        rows = v.index_select(0, plan.gather_padded.long())
+        assert torch.equal(segment_reduce_tiled(rows, None, plan.seg_tiles, plan.m2out,
+                                                monoids=monoids, **kw), got)
+        odd = torch.empty(v.numel() + 1, device=cuda)[1:].view(v.shape)
+        odd.copy_(v)
+        assert torch.equal(segment_reduce_tiled(odd, *args, monoids=monoids, **kw), got)
 
 
 def test_segment_reduce_kernel_propagates_nan(cuda):
@@ -131,6 +171,32 @@ def test_segment_reduce_kernel_propagates_nan(cuda):
                                 num_out_tiles=cpu_plan.num_out_tiles,
                                 ts=cpu_plan.ts)[:s]
     assert bool(torch.isnan(want[:, 2:]).any())
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0, equal_nan=True)
+
+
+def test_segment_reduce_wide_kernel_propagates_nan(cuda):
+    """The wide route keeps NaN in min/max as the CPU's plain version does,
+    a run crossing many slices included."""
+    from repro_torch.kernels.segment_reduce import ops
+    from repro_torch.kernels.segment_reduce.segment_reduce import (
+        segment_reduce_plain,
+        segment_sum_tiled,
+    )
+
+    rng = np.random.default_rng(4)
+    gidx, seg, s, _ = _k1_rows("long_run", rng)
+    vals = rng.integers(0, 100, (2000, 40)).astype(np.float32)
+    vals[rng.integers(0, 2000, 40), rng.integers(20, 40, 40)] = np.nan
+    cpu_plan = ops.build_tile_plan(gidx.astype(np.int32), seg, s, torch_device="cpu")
+    plan = ops.build_tile_plan(gidx.astype(np.int32), seg, s, torch_device=cuda)
+    before = segment_sum_tiled.launches_by_route["wide"]
+    got = ops.segment_reduce_multi(plan, torch.from_numpy(vals).to(cuda), (20, 10, 10))
+    assert segment_sum_tiled.launches_by_route["wide"] == before + 1
+    want = segment_reduce_plain(torch.from_numpy(vals), cpu_plan.gather_padded,
+                                cpu_plan.seg_tiles, monoids=(20, 10, 10),
+                                num_out_tiles=cpu_plan.num_out_tiles,
+                                ts=cpu_plan.ts)[:s]
+    assert bool(torch.isnan(want[:, 20:]).any())
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0, equal_nan=True)
 
 

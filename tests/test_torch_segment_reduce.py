@@ -9,6 +9,12 @@ Tolerance: rtol = atol = 1e-5 on normal values' sums, because the port sums
 each segment in another order than the reference kernel's one-hot matmul.
 Integer-valued inputs (every partial sum exact in float32) are compared bit
 for bit, and min/max bit for bit on any values (NaN where NaN).
+
+The wide route's work split (slices of plan rows x 128-column tiles, cut
+runs' partials combined in slice order) is checked through its NumPy model
+(``_k1_wide_model``), which the card's tests hold the kernel to bit for bit:
+bitwise the reference on integer data, within 1e-5 of the plain version on
+normal data, every output cell written exactly once.
 """
 
 import numpy as np
@@ -22,9 +28,12 @@ from repro.core import engine_jax as r_engine  # noqa: E402
 from repro.kernels.segment_reduce import ops as r_ops  # noqa: E402
 from repro.kernels.segment_reduce.ref import segment_reduce_ref as r_seg_ref  # noqa: E402
 
+from _k1_wide_model import wide_model  # noqa: E402
 from repro_torch.kernels.segment_reduce import ops as p_ops  # noqa: E402
+from repro_torch.kernels.segment_reduce import segment_reduce as p_seg  # noqa: E402
 from repro_torch.kernels.segment_reduce.ref import segment_reduce_ref  # noqa: E402
 from repro_torch.kernels.segment_reduce.segment_reduce import (  # noqa: E402
+    segment_reduce_plain,
     segment_reduce_tiled,
     segment_sum_tiled,
 )
@@ -200,6 +209,119 @@ def test_wrapper_refuses_other_devices_and_bad_inputs():
         segment_sum_tiled(torch.zeros((4, 1), dtype=torch.float64),
                           plan.gather_padded, plan.seg_tiles, plan.m2out,
                           num_out_tiles=1, tm=plan.tm, ts=plan.ts)
+
+
+def _wide_case(kind, monoids, slice_rows):
+    """The wide route's model on one plan case, integer then normal values:
+    ``[(segments, rows, slice_rows, model, writes, plain, mass, ref)]``
+    (``mass``: each segment's sum of |terms|; ``ref``: the reference's
+    answer, integer values only)."""
+    rng = np.random.default_rng(sum(monoids) + len(kind))
+    gidx, seg, s, headroom = _plan_rows(kind, rng)
+    gidx = gidx.astype(np.int32)
+    rplan = r_ops.build_tile_plan(gidx, seg, s, headroom=headroom)
+    pplan = p_ops.build_tile_plan(gidx, seg, s, headroom=headroom, torch_device="cpu")
+    rows = pplan.seg_tiles.numel()
+    slice_rows = slice_rows or p_seg.wide_slice_rows(rows)
+    c = sum(monoids)
+    kw = dict(num_out_tiles=pplan.num_out_tiles, ts=pplan.ts)
+    out = []
+    for integer in (True, False):
+        vals = (rng.integers(0, 100, (1000, c)) if integer
+                else rng.normal(size=(1000, c))).astype(np.float32)
+        model, writes = wide_model(vals, pplan.gather_padded.numpy(), pplan.seg_tiles.numpy(),
+                                   pplan.m2out.numpy(), monoids, pplan.num_out_tiles,
+                                   pplan.tm, pplan.ts, slice_rows)
+        v = torch.from_numpy(vals)
+        plain = segment_reduce_plain(v, pplan.gather_padded, pplan.seg_tiles,
+                                     monoids=monoids, **kw).numpy()[:s]
+        mass = segment_reduce_plain(v.abs(), pplan.gather_padded, pplan.seg_tiles,
+                                    monoids=(c, 0, 0), **kw).numpy()[:s]
+        ref = _reference_reduce(rplan, vals, monoids, s) if integer else None
+        out.append((s, rows, slice_rows, model, writes, plain, mass, ref))
+    return out
+
+
+@pytest.mark.parametrize("kind,monoids,slice_rows", [
+    ("plain", (33, 0, 0), None), ("headroom", (33, 0, 0), None),
+    ("empty", (33, 0, 0), None), ("long_run", (33, 0, 0), None),
+    ("plain", (64, 33, 33), None), ("headroom", (64, 33, 33), None),
+    ("empty", (64, 33, 33), None), ("long_run", (64, 33, 33), None),
+    ("long_run", (64, 33, 33), 128), ("headroom", (64, 33, 33), 1024),
+    ("plain", (64, 33, 33), 1024), ("empty", (33, 0, 0), 1024),
+    ("long_run", (1433, 0, 0), None), ("empty", (1433, 0, 0), None),
+])
+def test_wide_route_model_matches_reference(kind, monoids, slice_rows):
+    """Integer values bitwise the reference; normal values' sums within 1e-5
+    of each segment's sum of |terms| from the plain version (the two add in
+    other orders), min/max bitwise."""
+    n_sum = monoids[0]
+    for s, rows, slice_rows, model, writes, plain, mass, ref in _wide_case(kind, monoids,
+                                                                           slice_rows):
+        # every output cell written exactly once, by a run, a gap or a group fill
+        assert (writes == 1).all()
+        if kind == "long_run":  # the 3,000-row run crosses many slices
+            assert 3000 // slice_rows >= 2
+        if ref is not None:  # integer values: every partial sum exact
+            assert np.array_equal(model[:s], ref)
+        else:
+            assert (np.abs(model[:s, :n_sum] - plain[:, :n_sum])
+                    <= 1e-5 * mass[:, :n_sum]).all()
+            assert np.array_equal(model[:s, n_sum:], plain[:, n_sum:])
+
+
+def test_wide_route_model_keeps_nan():
+    rng = np.random.default_rng(12)
+    gidx, seg, s, headroom = _plan_rows("long_run", rng)
+    pplan = p_ops.build_tile_plan(gidx.astype(np.int32), seg, s, torch_device="cpu")
+    vals = rng.integers(0, 100, (1000, 40)).astype(np.float32)
+    vals[rng.integers(0, 1000, 30), rng.integers(20, 40, 30)] = np.nan
+    monoids = (20, 10, 10)
+    model, writes = wide_model(vals, pplan.gather_padded.numpy(), pplan.seg_tiles.numpy(),
+                               pplan.m2out.numpy(), monoids, pplan.num_out_tiles, pplan.tm,
+                               pplan.ts, 32)
+    plain = segment_reduce_plain(torch.from_numpy(vals), pplan.gather_padded, pplan.seg_tiles,
+                                 monoids=monoids, num_out_tiles=pplan.num_out_tiles,
+                                 ts=pplan.ts).numpy()[:s]
+    assert np.isnan(plain[:, 20:]).any() and (writes == 1).all()
+    assert np.array_equal(model[:s], plain, equal_nan=True)
+
+
+def test_route_table():
+    assert [p_seg.route(c) for c in (1, 2, 3, 4, 24, 32)] == ["narrow"] * 6
+    assert [p_seg.route(c) for c in (33, 64, 100, 128, 1433)] == ["wide"] * 5
+    assert p_seg.route(p_seg.NARROW_MAX_C) == "narrow"
+    assert p_seg.route(p_seg.NARROW_MAX_C + 1) == "wide"
+    prev = 0
+    for rows in (512, 11_264, 169_984, 1 << 21, 62_000_000, 1 << 31):
+        n = p_seg.wide_slice_rows(rows)
+        assert n & (n - 1) == 0 and n % 4 == 0
+        assert p_seg.WIDE_SLICE_MIN <= n <= p_seg.WIDE_SLICE_MAX and n >= prev
+        assert n == p_seg.WIDE_SLICE_MAX or -(-rows // n) <= p_seg.WIDE_SLICES
+        prev = n
+
+
+def test_wrapper_limits_by_route(monkeypatch):
+    """The narrow route's shared-memory limit binds only where the table
+    sends C to it (here with its threshold raised); the wide route takes
+    the same C.  Fake tensors take the kernel's route without a card."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    plan = p_ops.build_tile_plan(np.zeros(3, np.int32), np.zeros(3, np.int32), 1,
+                                 torch_device="cpu")
+    wide_c = p_seg.NARROW_SMEM_BYTES // 16 + 1  # past the narrow route's carry
+    before = dict(segment_sum_tiled.launches_by_route)
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        args = [mode.from_tensor(t) for t in (plan.gather_padded, plan.seg_tiles,
+                                              plan.m2out)]
+        values = torch.empty((4, wide_c))
+        kw = dict(monoids=(wide_c, 0, 0), num_out_tiles=1, tm=plan.tm, ts=plan.ts)
+        out = segment_reduce_tiled(values, *args, **kw)  # the table's: wide
+        assert tuple(out.shape) == (plan.ts, wide_c)
+        monkeypatch.setattr(p_seg, "NARROW_MAX_C", wide_c)
+        with pytest.raises(ValueError, match="narrow route"):
+            segment_reduce_tiled(values, *args, **kw)
+    assert segment_sum_tiled.launches_by_route == before  # a fake launch counts nothing
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):
